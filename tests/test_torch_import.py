@@ -1,0 +1,78 @@
+"""The port stands alone: ucd_torch and chip_smoke.py import nothing of JAX
+and nothing of the JAX package, and the port's entry points refuse to run
+on the CPU unless asked to."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "orbax", "ml_dtypes",
+             "ucd_tpu")
+
+
+def test_import_pulls_in_no_jax():
+    """A fresh interpreter (this one imported jax in conftest.py) imports
+    the port's modules and finds no JAX module loaded."""
+    code = (
+        "import sys\n"
+        "import ucd_torch, ucd_torch.engine.server, ucd_torch.cli\n"
+        "import ucd_torch.ops.fused_eval, ucd_torch.engine.export\n"
+        f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r})\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def _imported_modules(path):
+    tree = ast.parse(open(path).read(), path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_static_scan_names_no_jax_import():
+    paths = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, files in os.walk(os.path.join(REPO, "ucd_torch")):
+        paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
+    assert len(paths) > 10
+    bad = [(os.path.relpath(p, REPO), m) for p in paths
+           for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_entry_points_default_to_cuda(tmp_path):
+    """Without a GPU, the default device is an error, never a silent CPU
+    run; device='cpu' works."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid")
+    from ucd_torch import resolve_device
+    from ucd_torch.engine.export import load_inference, save_inference
+    from ucd_torch.engine.predictor import Predictor
+    from ucd_torch.models import IncrementalSegmentationModel
+
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        resolve_device()
+    model = IncrementalSegmentationModel((3,), backbone="resnet18",
+                                         pooling_size=2)
+    path = save_inference(model, str(tmp_path / "m.npz"),
+                          export_dtype="float32")["path"]
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        load_inference(path)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Predictor(model)
+    loaded, _ = load_inference(path, device="cpu")
+    preds = Predictor(loaded, device="cpu").predict_labels(
+        np.zeros((1, 32, 32, 3), np.uint8))
+    assert preds.shape == (1, 32, 32) and preds.device.type == "cpu"

@@ -1,0 +1,69 @@
+"""Shared helpers of the ucd_torch parity tests (tests/test_torch_*.py):
+seeded flax-keyed weights made with numpy, a jitted JAX forward, layout
+conversion and the argmax near-tie rule."""
+
+import numpy as np
+
+
+def random_flat_variables(jax_model, input_hw, seed=0):
+    """Flat `params/...` + `batch_stats/...` numpy f32 arrays for
+    `jax_model`, drawn from a seeded numpy generator: He-magnitude conv
+    kernels (finite activations through every block) and non-trivial BN
+    affine parameters and statistics (fresh init is scale-free and would
+    hide mean/var layout bugs)."""
+    import jax
+    import jax.numpy as jnp
+    from flax.traverse_util import flatten_dict
+
+    shapes = jax.eval_shape(lambda: jax_model.init(
+        jax.random.key(0), jnp.zeros((1, *input_hw, 3)), train=False))
+    rng = np.random.RandomState(seed)
+    flat = {}
+    for key, s in sorted(flatten_dict(shapes, sep="/").items()):
+        leaf = key.rsplit("/", 1)[1]
+        if leaf == "kernel":
+            v = rng.randn(*s.shape) * np.sqrt(2.0 / np.prod(s.shape[:3]))
+        elif leaf == "scale":
+            v = np.abs(rng.randn(*s.shape)) * 0.3 + 0.8
+        elif leaf in ("bias", "mean"):
+            v = rng.randn(*s.shape) * 0.1
+        elif leaf == "var":
+            v = np.abs(rng.randn(*s.shape)) * 0.3 + 0.7
+        else:
+            raise KeyError(key)
+        flat[key] = v.astype(np.float32)
+    return flat
+
+
+def unflatten(flat):
+    from flax.traverse_util import unflatten_dict
+    return unflatten_dict(flat, sep="/")
+
+
+def jax_forward(jax_model, flat, x):
+    """Eval-mode `model.apply` (jitted) -> numpy (outputs, feats)."""
+    import jax
+
+    fn = jax.jit(lambda v, x: jax_model.apply(v, x, train=False))
+    out, feats = fn(unflatten(flat), x)
+    return np.asarray(out), {k: np.asarray(v) for k, v in feats.items()}
+
+
+def nhwc(t):
+    """NCHW torch tensor -> NHWC float32 numpy."""
+    return t.detach().float().permute(0, 2, 3, 1).cpu().numpy()
+
+
+def assert_argmax_close(got, want, up, gap_tol=1e-4, rate_tol=1e-3):
+    """Argmax maps equal except at near-exact ties: a mismatch is allowed
+    only where the top-2 gap of the upsampled logits `up` (B, H, W, C) is
+    below `gap_tol`, and at a rate below `rate_tol`."""
+    got, want = np.asarray(got), np.asarray(want)
+    assert got.shape == want.shape
+    mism = got != want
+    if mism.any():
+        top2 = np.sort(up, axis=-1)
+        gap = top2[..., -1] - top2[..., -2]
+        assert gap[mism].max() < gap_tol, (
+            f"{mism.sum()} real argmax mismatches, max gap {gap[mism].max()}")
+        assert mism.mean() < rate_tol, mism.mean()

@@ -1,0 +1,6 @@
+"""Host-side data constants of the port (the loaders come with the train
+slice)."""
+
+from .transforms import IMAGENET_MEAN, IMAGENET_STD
+
+__all__ = ["IMAGENET_MEAN", "IMAGENET_STD"]
