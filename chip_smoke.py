@@ -7,26 +7,46 @@ Phases (any failure exits non-zero, and no result line is printed):
 
   1. build every CUDA kernel of the port from `ucd_torch/ops/csrc/` with
      nvcc (sm_90a), all sources at once, and print the card;
-  2. hold each kernel against its plain PyTorch version on the card
-     (fused upsample+argmax: the serving shape, ADE's 151 classes, a
-     non-multiple shape, bf16 input, identity resolution, NaN pixels);
-  3. drive the serving path at full width: ResNet-101 DeepLab-v3 (os 16,
-     head 256, pooling 32) with VOC 15-5s's six heads (21 classes), seeded
-     random weights with BN statistics calibrated on one seeded batch,
-     written as a bf16 `ucd_tpu.inference.v1` npz and served through
-     load_inference -> Predictor -> MicroBatcher -> HTTP; the kernels'
-     launch counts are read over this phase alone;
+  2. hold each kernel against its plain PyTorch version on the card:
+     fused upsample+argmax (the serving shape, ADE's 151 classes, a
+     non-multiple shape, bf16 input, identity resolution, NaN pixels) and
+     the fused upsample+CE/KD forward and backward kernels (the six-mode
+     matrix at the train shape, ADE's class counts, a non-multiple shape,
+     identity resolution, alpha 2, all-ignore labels, uint8 vs int32
+     labels, bit-reproducible backward);
+  3. drive the two main paths at full width (ResNet-101 DeepLab-v3, os 16,
+     head 256, pooling 32; seeded random weights with BN statistics
+     calibrated on one seeded batch), each with the kernels' launch counts
+     set to 0 just before and read just after:
+     a. serving: VOC 15-5s's six heads (21 classes) written as a bf16
+        `ucd_tpu.inference.v1` npz and served through load_inference ->
+        Predictor -> MicroBatcher -> HTTP;
+     b. training: VOC 15-5s step 1 with the MiB preset (unbiased CE +
+        unbiased KD x10, imprinted new classifier, cls_0 frozen), bf16
+        compute with f32 masters, batch 8 of 512x512 uint8 images:
+        build_train_state -> make_train_step for 12 steps (after the
+        first, every BN's running statistics are held against the batch
+        mean and biased variance recomputed in plain f32), then
+        make_eval_step over two batches to a confusion matrix and mIoU,
+        and once more with the running statistics reset to one batch's,
+        where it must agree with the train-mode forward;
+        plus one f32 ResNet-50 step at 64x64 on the card against the same
+        step on the CPU;
   4. time each kernel beside its plain version, one library call and its
-     roofline bound, and the serving throughput at batch 8, 512x512, bf16.
+     roofline bound, the serving throughput and the train-step throughput
+     at batch 8 (and 16), 512x512, bf16.
 
 The last three lines of stdout are the `{"kernels": [...]}` record, the
 card's name and power limit (nvidia-smi), and `{"ok": true, "device": ...}`.
-`--profile DIR` also writes a torch.profiler table of predict_labels there.
+`--profile DIR` also writes torch.profiler tables of predict_labels and of
+the train step there. `--only kernels` stops after phase 2 and prints no
+result (for bringing a kernel up).
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import io
 import json
 import os
@@ -43,15 +63,23 @@ import torch.nn.functional as F
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+from ucd_torch import config as C  # noqa: E402
 from ucd_torch.engine.export import (_bucket_hw, load_inference,  # noqa: E402
                                      save_inference)
+from ucd_torch.engine.metrics import (empty_confusion,  # noqa: E402
+                                      results_from_confusion)
 from ucd_torch.engine.predictor import Predictor  # noqa: E402
 from ucd_torch.engine.server import (MicroBatcher, make_server,  # noqa: E402
                                      shutdown_server)
-from ucd_torch.models import IncrementalSegmentationModel  # noqa: E402
+from ucd_torch.engine.state import build_train_state  # noqa: E402
+from ucd_torch.engine.train import (compute_train_losses,  # noqa: E402
+                                    make_eval_step, make_train_step)
+from ucd_torch.models import (IncrementalSegmentationModel,  # noqa: E402
+                              make_model)
 from ucd_torch.models.segmentation import resize_bilinear  # noqa: E402
 from ucd_torch.ops import build  # noqa: E402
 from ucd_torch.ops import fused_eval as FE  # noqa: E402
+from ucd_torch.ops import fused_loss as FL  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
@@ -59,6 +87,13 @@ F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 CLASSES = (16, 1, 1, 1, 1, 1)
 BATCH, SIZE = 8, 512
 SMALL = (375, 500)  # VOC's most common image size: bucket 384x512
+# the train path: VOC 15-5s step 1 under the MiB preset
+TRAIN = dict(dataset="voc", task="15-5s", step=1, method="MiB",
+             backbone="resnet101", batch_size=BATCH, crop_size=SIZE,
+             lr=0.001)
+TRAIN_STEPS_FRESH, TRAIN_STEPS_REPEAT = 4, 8
+MODES = [("ce", "none"), ("ce", "kd"), ("ce", "unkd"),
+         ("unce", "none"), ("unce", "kd"), ("unce", "unkd")]
 
 
 def log(*a):
@@ -100,6 +135,21 @@ def make_images(n, h, w, seed) -> np.ndarray:
     img = img + torch.randn(n, 3, h, w, generator=g) * 12
     return img.clamp(0, 255).round().to(torch.uint8).permute(
         0, 2, 3, 1).contiguous().numpy()
+
+
+def make_labels(n, h, w, n_classes, seed) -> np.ndarray:
+    """Seeded uint8 (n, h, w) labels with spatial structure: a coarse grid
+    of class ids upsampled to blocks, plus a 255 (ignore) frame and an
+    ignore rectangle."""
+    g = torch.Generator().manual_seed(seed)
+    low = torch.randint(0, n_classes, (n, 1, 7, 9), generator=g).float()
+    lab = F.interpolate(low, size=(h, w), mode="nearest")[:, 0]
+    lab = lab.to(torch.uint8)
+    e = max(1, h // 64)
+    lab[:, :e] = lab[:, -e:] = 255
+    lab[:, :, :e] = lab[:, :, -e:] = 255
+    lab[:, h // 3:h // 3 + h // 8, w // 4:w // 4 + w // 6] = 255
+    return lab.contiguous().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -180,37 +230,135 @@ def phase_kernels(dev) -> dict:
     return worst
 
 
+LOSS_RTOL, LOSS_ATOL, GRAD_TOL = 1e-5, 1e-6, 2e-4
+
+
+def fused_loss_and_grad(z, lab, t, ct_kd=2.5, **kw):
+    """(loss_ce, loss_kd, d(ce + ct_kd*kd)/dz) through the kernels."""
+    zz = z.detach().requires_grad_(True)
+    lc, lk = FL.fused_ce_kd(zz, lab, t, **kw)
+    (g,) = torch.autograd.grad(lc + ct_kd * lk, zz)
+    return lc.detach(), lk.detach(), g
+
+
+def check_fused_loss(z, lab, t, **kw) -> dict:
+    """Kernels vs plain on the same CUDA tensors: both losses within
+    rtol 1e-5 / atol 1e-6, and the gradient of ce + 2.5*kd (distinct
+    weights, so that cross-wired cotangents cannot cancel) within 2e-4 of
+    its largest entry: the JAX package's own tolerances for its kernels."""
+    lc, lk, g = fused_loss_and_grad(z, lab, t, **kw)
+    pc, pk = FL.fused_ce_kd_plain(z, lab, t, **kw)
+    pg = FL.fused_ce_kd_grad_plain(z, lab, t, ct_kd=2.5, **kw)
+    torch.cuda.synchronize()
+    assert lc.dtype == lk.dtype == torch.float32 and g.shape == z.shape
+    loss_err = 0.0
+    for got, want, name in ((lc, pc, "ce"), (lk, pk, "kd")):
+        err = abs(float(got) - float(want))
+        assert err <= LOSS_ATOL + LOSS_RTOL * abs(float(want)), (
+            f"{name} loss: kernel {float(got)!r} vs plain {float(want)!r}")
+        loss_err = max(loss_err, err)
+    scale = float(pg.abs().max()) + 1e-12
+    grad_err = float((g - pg).abs().max())
+    assert torch.isfinite(g).all()
+    assert grad_err <= GRAD_TOL * scale, (
+        f"gradient: max|d| {grad_err:.3g} vs max|g| {scale:.3g}")
+    return {"loss_err": loss_err, "grad_err": grad_err,
+            "grad_rel_err": grad_err / scale,
+            "ce": float(lc), "kd": float(lk)}
+
+
+def phase_loss_kernels(dev) -> dict:
+    g = torch.Generator().manual_seed(3)
+
+    def case(B, h, w, C, Co, H, W):
+        z = torch.randn(B, h, w, C, generator=g).to(dev)
+        t = torch.randn(B, h, w, Co, generator=g).to(dev)
+        lab = torch.from_numpy(make_labels(B, H, W, C, seed=B + C + H)
+                               ).to(dev)
+        return z, lab, t
+
+    worst = {"loss_err": 0.0, "grad_err": 0.0, "grad_rel_err": 0.0}
+
+    def run(name, z, lab, t, **kw):
+        r = check_fused_loss(z, lab, t, **kw)
+        log(f"[kernel] fused_loss {name}: ok {json.dumps(r)}")
+        for k in worst:
+            worst[k] = max(worst[k], r[k])
+
+    z, lab, t = case(BATCH, SIZE // 16, SIZE // 16, 17, 16, SIZE, SIZE)
+    assert int((lab == 255).sum()) > 0
+    for ce_mode, kd_mode in MODES:
+        run(f"train shape (8,32,32,17/16) -> 512 {ce_mode}+{kd_mode}", z,
+            lab, t, old_cl=16 if ce_mode == "unce" else 0, ce_mode=ce_mode,
+            kd_mode=kd_mode)
+    mib = dict(ce_mode="unce", kd_mode="unkd")
+    # uint8, int32 and int64 labels give the same bits
+    ref = fused_loss_and_grad(z, lab, t, old_cl=16, **mib)
+    for dt in (torch.int32, torch.int64):
+        got = fused_loss_and_grad(z, lab.to(dt), t, old_cl=16, **mib)
+        assert all(torch.equal(a, b) for a, b in zip(ref, got)), dt
+    # the backward is bit-reproducible
+    again = fused_loss_and_grad(z, lab, t, old_cl=16, **mib)
+    assert all(torch.equal(a, b) for a, b in zip(ref, again))
+    log("[kernel] fused_loss uint8 / int32 / int64 labels: same bits; "
+        "backward run twice: same bits")
+    run("alpha=2 (8,32,32,17/16) -> 512", z, lab, t, old_cl=16, alpha=2.0,
+        **mib)
+    za, laba, ta = case(2, SIZE // 16, SIZE // 16, 151, 101, SIZE, SIZE)
+    run("ADE (2,32,32,151/101) -> 512", za, laba, ta, old_cl=101, **mib)
+    zn, labn, tn = case(2, 13, 17, 11, 6, 100, 132)
+    run("non-multiple (2,13,17,11/6) -> (100,132)", zn, labn, tn, old_cl=6,
+        **mib)
+    zi, labi, ti = case(2, 16, 16, 11, 6, 16, 16)
+    run("identity (2,16,16,11/6)", zi, labi, ti, old_cl=6, **mib)
+    # all-ignore labels: the CE term is exactly 0, and so is its gradient
+    lab255 = torch.full_like(lab, 255)
+    lc, _, g0 = fused_loss_and_grad(z, lab255, None, old_cl=16,
+                                    ce_mode="unce", kd_mode="none")
+    assert float(lc) == 0.0 and not g0.any(), float(lc)
+    log("[kernel] fused_loss all-255 labels: CE exactly 0")
+    # a float32-only, upsample-only contract: anything else raises
+    for bad in (lambda: FL.fused_ce_kd(z.bfloat16(), lab),
+                lambda: FL.fused_ce_kd(z, lab[:, :16, :16]),
+                lambda: FL.fused_ce_kd(z, lab, t, ce_mode="unce", old_cl=0),
+                lambda: FL.fused_ce_kd(z, lab.float())):
+        try:
+            bad()
+        except (TypeError, ValueError):
+            continue
+        raise AssertionError("fused_ce_kd accepted an input it cannot take")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the full-width serving path
 # ---------------------------------------------------------------------------
 
-def build_model(dev, tmp) -> str:
-    """Seeded full-width model, BN statistics calibrated on one seeded
-    batch, checked on the card against the CPU at a small size, written as
-    a bf16 inference npz. Returns its path."""
-    model = IncrementalSegmentationModel(
-        CLASSES, backbone="resnet101", output_stride=16, head_channels=256,
-        pooling_size=32, dtype=torch.float32)
-    model.init_weights(torch.Generator().manual_seed(0))
-    model.to(device=dev, memory_format=torch.channels_last)
-    # one no-grad train-mode pass with momentum None sets every BN's
-    # running statistics to that batch's, which keeps the 33 blocks'
-    # activations finite in eval mode
+def set_bn_stats_to_batch(model, x):
+    """One no-grad train-mode pass over the NCHW batch `x` with momentum
+    None sets every BN's running statistics to that batch's."""
     bns = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
     for m in bns:
         m.momentum = None
-    cal = torch.from_numpy(make_images(BATCH, SIZE, SIZE, seed=10)).to(dev)
+        m.reset_running_stats()
     model.train()
     with torch.no_grad():
-        model.forward_sem(cal.permute(0, 3, 1, 2))
+        model.forward_sem(x)
     for m in bns:
         m.momentum = 0.1
     model.eval()
-    # a random head favours one class everywhere: center and scale each
-    # class's logit over the same batch (mean 0, std 2) so the prediction
-    # varies across each image, as a trained model's does
+
+
+def calibrate(model, x):
+    """Running statistics of every BN set to those of the uint8 NHWC batch
+    `x`, which keeps the blocks' activations finite in eval mode. Then each
+    class's logit is centered and scaled over the same batch (mean 0, std
+    2): a random head favours one class everywhere, and the prediction
+    should vary across each image as a trained model's does."""
+    x = x.permute(0, 3, 1, 2)
+    set_bn_stats_to_batch(model, x)
     with torch.no_grad():
-        sem = model.forward_sem(cal.permute(0, 3, 1, 2))
+        sem = model.forward_sem(x)
         mu = sem.mean(dim=(0, 2, 3))
         scale = 2.0 / sem.std(dim=(0, 2, 3)).clamp_min(1e-6)
         k = 0
@@ -219,6 +367,26 @@ def build_model(dev, tmp) -> str:
             cls.weight.mul_(s.view(-1, 1, 1, 1))
             cls.bias.sub_(mu[k:k + cls.out_channels]).mul_(s)
             k += cls.out_channels
+    return model
+
+
+def calibrated_model(dev, classes, backbone="resnet101", size=SIZE,
+                     batch=BATCH, seed=0):
+    """Seeded f32 model on `dev`, calibrated on one seeded batch."""
+    model = IncrementalSegmentationModel(
+        classes, backbone=backbone, output_stride=16, head_channels=256,
+        pooling_size=32, dtype=torch.float32)
+    model.init_weights(torch.Generator().manual_seed(seed))
+    model.to(device=dev, memory_format=torch.channels_last)
+    cal = torch.from_numpy(make_images(batch, size, size, seed=10)).to(dev)
+    return calibrate(model, cal)
+
+
+def build_model(dev, tmp) -> str:
+    """Seeded full-width model, BN statistics calibrated on one seeded
+    batch, checked on the card against the CPU at a small size, written as
+    a bf16 inference npz. Returns its path."""
+    model = calibrated_model(dev, CLASSES)
 
     # reference on a small input: the f32 model on the card (TF32 off)
     # against the same model on the CPU
@@ -269,6 +437,7 @@ def submit_all(batcher, imgs):
 
 
 def phase_serving(dev, npz) -> dict:
+    torch.cuda.reset_peak_memory_stats()
     model, meta = load_inference(npz, device=dev)
     assert model.dtype == torch.bfloat16 and meta["dtype"] == "bfloat16"
     predictor = Predictor(model, device=dev)
@@ -362,7 +531,279 @@ def phase_serving(dev, npz) -> dict:
         shutdown_server(srv)
     log("[serve] HTTP: ids, color and json answers equal direct "
         "prediction; /healthz ok")
-    return {"model": model, "predictor": predictor, "imgs": imgs}
+    return {"model": model, "predictor": predictor, "imgs": imgs,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: the full-width train path
+# ---------------------------------------------------------------------------
+
+def train_batches(n, batch, size, n_classes, seed):
+    """n seeded batches of uint8 NHWC images and uint8 labels, on the
+    host."""
+    return [{"image": make_images(batch, size, size, seed=seed + 2 * i),
+             "label": make_labels(batch, size, size, n_classes,
+                                  seed=seed + 2 * i + 1)} for i in range(n)]
+
+
+def build_train(dev, cfg, prev_sd, seed=1):
+    """(model, donor model, state, old_vars) of an incremental step whose
+    previous step left `prev_sd`."""
+    model = make_model(cfg)
+    model_old = make_model(cfg, cfg.classes_per_step[:-1]).to(
+        device=dev, memory_format=torch.channels_last)
+    state, old_vars = build_train_state(
+        cfg, model, torch.Generator().manual_seed(seed), total_iters=100,
+        prev_model_state=prev_sd, device=dev)
+    return model, model_old, state, old_vars
+
+
+def check_fused_vs_dense(cfg, model, model_old, old_vars, batch, dev):
+    """On one batch, the step's loss terms through the kernels equal the
+    dense path's (f32 upsample + ops.losses) within the kernel tolerances,
+    and so does the gradient on the low-res logits."""
+    x = torch.from_numpy(batch["image"]).to(dev).permute(0, 3, 1, 2)
+    labels = torch.from_numpy(batch["label"]).to(dev)
+    model.eval()
+    with torch.no_grad():
+        sem = model.forward_feats(x)["sem"].permute(0, 2, 3, 1).contiguous()
+        _, f_old = torch.func.functional_call(
+            model_old, old_vars, (x,), {"upsample": False,
+                                        "attention": False})
+        sem_old = f_old["sem"].permute(0, 2, 3, 1).contiguous()
+    assert sem.shape == (BATCH, SIZE // 16, SIZE // 16, cfg.tot_classes)
+    assert sem.dtype == torch.float32 and bool(torch.isfinite(sem).all())
+    out = {}
+    for name, c in (("fused", cfg), ("dense", dataclasses.replace(
+            cfg, fused_loss=False, bf16_upsample=False))):
+        z = sem.clone().requires_grad_(True)
+        terms = compute_train_losses(c, None, {"sem": z}, labels, None,
+                                     {"sem": sem_old})
+        (g,) = torch.autograd.grad(terms["loss_tot"], z)
+        out[name] = ({k: float(v.detach()) for k, v in terms.items()}, g)
+    (tf, gf), (td, gd) = out["fused"], out["dense"]
+    for k in ("loss", "lkd"):
+        # lkd carries the x10 weight, so its absolute bound scales with it
+        scale = cfg.loss_kd if k == "lkd" else 1.0
+        assert abs(tf[k] - td[k]) <= scale * LOSS_ATOL + LOSS_RTOL * abs(
+            td[k]), (k, tf[k], td[k])
+    rel = float((gf - gd).abs().max()) / (float(gd.abs().max()) + 1e-12)
+    assert rel <= GRAD_TOL, rel
+    log(f"[train] first batch, fused vs dense: loss {tf['loss']:.6f} / "
+        f"{td['loss']:.6f}, lkd {tf['lkd']:.6f} / {td['lkd']:.6f}, "
+        f"d loss_tot / d sem max rel err {rel:.3g}")
+
+
+BN_STAT_TOL = 2e-5
+
+
+def watch_batch_stats(model):
+    """Forward pre-hooks on every BatchNorm of `model`: each recomputes its
+    input's batch mean and biased variance in plain f32 on the card and
+    keeps them beside the running statistics as they stood before the
+    forward. Returns (records, hook handles)."""
+    records, handles = {}, []
+    for name, m in model.named_modules():
+        if isinstance(m, torch.nn.BatchNorm2d):
+            def hook(mod, args, name=name):
+                x = args[0].detach().float()
+                records[name] = (
+                    mod.running_mean.clone(), mod.running_var.clone(),
+                    x.mean(dim=(0, 2, 3)),
+                    x.var(dim=(0, 2, 3), unbiased=False))
+            handles.append(m.register_forward_pre_hook(hook))
+    return records, handles
+
+
+def check_running_stats(model, records, momentum=0.1) -> float:
+    """After one train step, every BN's running mean and variance equal
+    old + momentum * (batch statistic - old), with the *biased* batch
+    variance, within BN_STAT_TOL of the tensor's largest entry. Returns
+    the largest such error."""
+    mods = dict(model.named_modules())
+    worst = 0.0
+    for name, (mean0, var0, mean, var) in records.items():
+        bn = mods[name]
+        for got, old, new, what in ((bn.running_mean, mean0, mean, "mean"),
+                                    (bn.running_var, var0, var, "var")):
+            want = torch.lerp(old, new, momentum)
+            err = float((got - want).abs().max()) / (
+                float(want.abs().max()) + 1e-12)
+            assert err <= BN_STAT_TOL, (
+                f"{name}.running_{what}: {err:.3g} of its largest entry "
+                f"from the plain f32 update")
+            worst = max(worst, err)
+    return worst
+
+
+def check_eval_equals_train_mode(tr, eval_step, batch, dev):
+    """With the running statistics set to one batch's, the validate step
+    on that batch (eval mode: running statistics, sliding pool of the map's
+    own size) computes the function the train-mode forward computes on it,
+    so both criterion losses agree within 5 % (bf16 convolutions; cuDNN's
+    training and inference norms round differently)."""
+    cfg, model, old_vars = tr["cfg"], tr["model"], tr["old_vars"]
+    x = torch.from_numpy(batch["image"]).to(dev).permute(0, 3, 1, 2)
+    labels = torch.from_numpy(batch["label"]).to(dev)
+    set_bn_stats_to_batch(model, x)
+    model.train()
+    with torch.no_grad():
+        sem = model.forward_feats(x)["sem"].permute(0, 2, 3, 1).contiguous()
+        train_loss = float(compute_train_losses(
+            cfg, None, {"sem": sem}, labels)["loss"])
+    _, terms, _ = eval_step(None, batch, empty_confusion(cfg.tot_classes),
+                            old_vars)
+    eval_loss = float(terms["loss"])
+    log(f"[train] running statistics reset to the repeated batch's: "
+        f"validate loss {eval_loss:.5f} (eval mode) beside {train_loss:.5f} "
+        f"(train-mode forward of the same weights)")
+    assert abs(eval_loss - train_loss) <= 0.05 * train_loss + 0.01, (
+        eval_loss, train_loss)
+    return {"eval_loss": eval_loss, "train_mode_loss": train_loss}
+
+
+def phase_train(dev) -> dict:
+    cfg = C.make_config(**TRAIN)
+    assert cfg.classes_per_step == [16, 1] and cfg.old_classes == 16
+    assert cfg.unce and cfg.unkd and cfg.init_balanced and cfg.loss_kd == 10
+    assert cfg.dtype == "bfloat16" and cfg.fused_loss
+    step0 = calibrated_model(dev, (16,), backbone=cfg.backbone, seed=5)
+    prev_sd = {k: v.clone() for k, v in step0.state_dict().items()}
+    del step0
+    model, model_old, state, old_vars = build_train(dev, cfg, prev_sd)
+    assert model.dtype == torch.bfloat16
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    # the imprint: the new classifier starts from cls_0's background row
+    assert torch.equal(model.cls_1.weight[0], model.cls_0.weight[0])
+    n_steps = TRAIN_STEPS_FRESH + TRAIN_STEPS_REPEAT
+    batches = train_batches(TRAIN_STEPS_FRESH + 1, BATCH, SIZE,
+                            cfg.tot_classes, seed=30)
+    val = train_batches(2, BATCH, SIZE, cfg.tot_classes, seed=50)
+    check_fused_vs_dense(cfg, model, model_old, old_vars, batches[0], dev)
+
+    train_step = make_train_step(cfg, model, model_old, total_iters=100)
+    eval_step = make_eval_step(cfg, model, model_old)
+    _, terms, _ = eval_step(None, val[0], empty_confusion(cfg.tot_classes),
+                            old_vars)
+    log(f"[train] validate step before training: loss "
+        f"{float(terms['loss']):.5f}, lkd {float(terms['lkd']):.5f}")
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    donor_before = {k: v.clone() for k, v in old_vars.items()}
+    torch.cuda.reset_peak_memory_stats()
+
+    # ---- the main path: counts set to 0 here, read right after it ----
+    FL.fused_ce_kd.launches_fwd = FL.fused_ce_kd.launches_bwd = 0
+    FE.fused_argmax.launches = 0
+    history = []
+    bn_records, hooks = watch_batch_stats(model)  # over the first step
+    for i in range(n_steps):
+        batch = batches[min(i, TRAIN_STEPS_FRESH)]
+        state, metrics = train_step(state, batch, old_vars)
+        history.append({k: float(v) for k, v in metrics.items()})
+        if i == 0:
+            for h in hooks:
+                h.remove()
+            bn_err = check_running_stats(model, bn_records)
+    train_counts = (FL.fused_ce_kd.launches_fwd, FL.fused_ce_kd.launches_bwd)
+    hist = empty_confusion(cfg.tot_classes)
+    val_terms = []
+    for batch in val:
+        hist, terms, preds = eval_step(None, batch, hist, old_vars)
+        val_terms.append({k: float(v) for k, v in terms.items()})
+    torch.cuda.synchronize()
+    counts = {"fused_loss_fwd": FL.fused_ce_kd.launches_fwd,
+              "fused_loss_bwd": FL.fused_ce_kd.launches_bwd,
+              "fused_argmax": FE.fused_argmax.launches}
+    # ------------------------------------------------------------------
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    for i, m in enumerate(history):
+        assert all(np.isfinite(v) for v in m.values()), (i, m)
+        log(f"[train] step {i}: " + ", ".join(
+            f"{k} {m[k]:.5f}" for k in ("loss", "lkd", "loss_tot", "lr")))
+    assert train_counts == (n_steps, n_steps), train_counts
+    log(f"[train] after the first step, the {len(bn_records)} BNs' running "
+        f"statistics equal old + 0.1 * (batch mean / biased batch variance "
+        f"recomputed in plain f32 - old): worst error {bn_err:.3g} of a "
+        f"tensor's largest entry (bound {BN_STAT_TOL})")
+    assert counts == {"fused_loss_fwd": n_steps + len(val),
+                      "fused_loss_bwd": n_steps,
+                      "fused_argmax": len(val)}, counts
+    assert state.step == n_steps and state.opt_state["count"] == n_steps
+    after = model.state_dict()
+    params = dict(model.named_parameters())
+    for k in before:
+        same = torch.equal(before[k], after[k])
+        if k.startswith("cls_0."):
+            assert same, f"{k} is frozen but changed"
+        elif k in params:
+            assert not same, f"{k} did not change"
+        elif k.endswith(("running_mean", "running_var")):
+            assert not same, f"BN statistic {k} did not change"
+    for k, v in donor_before.items():
+        assert torch.equal(v, old_vars[k]), f"donor tensor {k} changed"
+    first, last = history[TRAIN_STEPS_FRESH], history[-1]
+    log(f"[train] repeated batch: loss_tot {first['loss_tot']:.5f} at its "
+        f"first visit, {last['loss_tot']:.5f} at its last")
+    assert last["loss_tot"] < first["loss_tot"], (first, last)
+
+    n_valid = sum(int((b["label"] != 255).sum()) for b in val)
+    assert int(hist.sum()) == n_valid, (int(hist.sum()), n_valid)
+    assert preds.shape == (BATCH, SIZE, SIZE) and preds.dtype == torch.int32
+    res = results_from_confusion(hist, total_samples=len(val) * BATCH)
+    for t in val_terms:
+        assert all(np.isfinite(v) for v in t.values()), t
+    log(f"[train] validate: {len(val)} batches, {n_valid} labelled pixels "
+        f"in the confusion matrix, mIoU {res['Mean IoU']:.4f}, overall acc "
+        f"{res['Overall Acc']:.4f}, loss {val_terms[-1]['loss']:.5f}, lkd "
+        f"{val_terms[-1]['lkd']:.5f}")
+    log(f"[train] launches on the train path: {json.dumps(counts)}; every "
+        f"cls_0 tensor and the donor bit-unchanged, every other parameter "
+        f"and BN statistic changed; peak memory {peak_gb:.2f} GB")
+    tr = {"cfg": cfg, "model": model, "model_old": model_old,
+          "state": state, "old_vars": old_vars, "batch": batches[-1],
+          "counts": counts, "train_counts": train_counts,
+          "n_steps": n_steps, "peak_gb": peak_gb}
+    check_eval_equals_train_mode(tr, eval_step, batches[-1], dev)
+    return tr
+
+
+def phase_train_small(dev):
+    """One f32 ResNet-50 MiB step at 64x64, batch 2, on the card (kernels,
+    TF32 off) against the same step on the CPU (plain versions): loss terms
+    within 1e-4 relative, and the new classifier's gradient (well
+    conditioned, unlike the gradients below the BN stack) within 1e-3 of
+    its largest entry."""
+    kw = dict(TRAIN, backbone="resnet50", batch_size=2, crop_size=64,
+              dtype="float32")
+    cfg = C.make_config(**kw)
+    step0 = calibrated_model("cpu", (16,), backbone="resnet50", size=64,
+                             batch=2, seed=6)
+    prev_sd = {k: v.clone() for k, v in step0.state_dict().items()}
+    batch = train_batches(1, 2, 64, cfg.tot_classes, seed=70)[0]
+    out = {}
+    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        model, model_old, state, old_vars = build_train(d, cfg, prev_sd)
+        step = make_train_step(cfg, model, model_old, total_iters=100,
+                               device=d)
+        before = (FL.fused_ce_kd.launches_fwd, FL.fused_ce_kd.launches_bwd)
+        _, metrics = step(state, batch, old_vars)
+        used = (FL.fused_ce_kd.launches_fwd - before[0],
+                FL.fused_ce_kd.launches_bwd - before[1])
+        assert used == ((1, 1) if d.type == "cuda" else (0, 0)), (name, used)
+        out[name] = ({k: float(v) for k, v in metrics.items()},
+                     model.cls_1.weight.grad.detach().cpu().flatten(),
+                     model.cls_1.bias.grad.detach().cpu())
+    (tc, wc, bc), (tg, wg, bg) = out["cpu"], out["card"]
+    for k in ("loss", "lkd", "loss_tot"):
+        assert abs(tg[k] - tc[k]) <= 1e-4 * abs(tc[k]), (k, tg[k], tc[k])
+    g_cpu, g_card = torch.cat([wc, bc]), torch.cat([wg, bg])
+    rel = float((g_card - g_cpu).abs().max() / g_cpu.abs().max())
+    log(f"[train] f32 ResNet-50 step at 64x64, card (kernels) vs CPU "
+        f"(plain): loss_tot {tg['loss_tot']:.6f} / {tc['loss_tot']:.6f}, "
+        f"new-classifier gradient max rel err {rel:.3g}")
+    assert rel <= 1e-3, rel
 
 
 # ---------------------------------------------------------------------------
@@ -396,6 +837,151 @@ def time_fused_argmax(dev, where) -> dict:
     return r
 
 
+def fused_loss_work(B, h, w, C, Co, H, W, old_cl, backward: bool):
+    """(bytes, operations) that the fused loss must move and do at least,
+    for the unce+unkd modes. Bytes: the two logit tensors and the uint8
+    labels read once; the backward also writes dz once. Operations, per
+    output pixel: the separable bilinear interpolation of C + Co logits (3
+    flops per class for the height lerp, and the width lerp of the h source
+    rows shared by H/h output rows); per member of each stabilized
+    log-sum-exp subset (all C, the old_cl old classes, {0} u new = C-Co+1,
+    and the Co old-model classes) one compare, one subtract, one exp and
+    one add = 4; 2 per old class for the KD products; 4 logs and ~10 flops
+    to combine. The backward repeats that (nothing is kept from the
+    forward) and adds per class ~8 flops for the gradient and 4 for the
+    separable fold back to low-res. exp and log count as one operation
+    each, at the f32 rate outside the tensor cores."""
+    n_bytes = B * h * w * (C + Co) * 4 + B * H * W
+    px = B * H * W
+    interp = px * (C + Co) * 3 + B * h * W * (C + Co) * 3
+    members = C + old_cl + (C - Co + 1) + Co
+    n_ops = interp + px * (members * 4 + Co * 2 + 14)
+    if backward:
+        n_bytes += B * h * w * C * 4 + 8
+        n_ops += px * C * 12
+    return n_bytes, n_ops
+
+
+def time_fused_loss(dev, where) -> dict:
+    """B1 and B2 at the train shape, unce+unkd, uint8 labels."""
+    B, h, w, C, Co, H, W = BATCH, SIZE // 16, SIZE // 16, 17, 16, SIZE, SIZE
+    g = torch.Generator().manual_seed(4)
+    z = torch.randn(B, h, w, C, generator=g).to(dev)
+    t = torch.randn(B, h, w, Co, generator=g).to(dev)
+    lab = torch.from_numpy(make_labels(B, H, W, C, seed=40)).to(dev)
+    kw = dict(old_cl=16, ce_mode="unce", kd_mode="unkd", alpha=1.0)
+    coefs = torch.tensor([1.0 / (B * H * W), -10.0 / (Co * B * H * W)],
+                         device=dev)
+    out = {}
+    fwd_ms = cuda_ms(lambda: FL.launch_fwd(z, t, lab, **kw), iters=50)
+    fwd_full_ms = cuda_ms(lambda: FL.fused_ce_kd(z, lab, t, **kw), iters=50)
+    bwd_ms = cuda_ms(lambda: FL.launch_bwd(z, t, lab, coefs, **kw), iters=20)
+    plain_fwd_ms = cuda_ms(lambda: FL.fused_ce_kd_plain(z, lab, t, **kw),
+                           iters=10, warmup=3)
+    plain_both_ms = cuda_ms(
+        lambda: FL.fused_ce_kd_grad_plain(z, lab, t, ct_kd=10.0, **kw),
+        iters=10, warmup=3)
+    # yardstick for the ce/none mode only: no single PyTorch call computes
+    # unCE + unKD. The port never calls it.
+    lab64 = lab.long()
+    zc = z.permute(0, 3, 1, 2)
+    library_ms = cuda_ms(lambda: F.cross_entropy(
+        F.interpolate(zc, size=(H, W), mode="bilinear", align_corners=False),
+        lab64, ignore_index=255, reduction="sum"), iters=10, warmup=3)
+    ce_none_ms = cuda_ms(lambda: FL.launch_fwd(
+        z, None, lab, old_cl=0, ce_mode="ce", kd_mode="none", alpha=1.0),
+        iters=50)
+    for name, ms, plain, backward in (
+            ("fused_loss_fwd", fwd_ms, plain_fwd_ms, False),
+            ("fused_loss_bwd", bwd_ms, plain_both_ms, True)):
+        n_bytes, n_ops = fused_loss_work(B, h, w, C, Co, H, W, 16, backward)
+        bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+        ops_ms = n_ops / F32_FLOP_PER_S * 1e3
+        out[name] = {"ms": ms, "plain_ms": plain,
+                     "bound_ms": max(bytes_ms, ops_ms),
+                     "bound_by": "bytes" if bytes_ms >= ops_ms
+                     else "operations", "library_ms": None,
+                     "bytes": n_bytes, "operations": n_ops}
+    out["fused_loss_fwd"].update(
+        with_partial_sum_ms=fwd_full_ms, ce_none_ms=ce_none_ms,
+        ce_none_library_ms=library_ms)
+    f, b = out["fused_loss_fwd"], out["fused_loss_bwd"]
+    log(f"[time] fused_loss forward (8,32,32,17/16) -> 512x512 unce+unkd on "
+        f"{where}: kernel {fwd_ms:.4f} ms ({fwd_full_ms:.4f} ms with the "
+        f"wrapper's partial sums), plain (dense forward) "
+        f"{plain_fwd_ms:.4f} ms, bound {f['bound_ms']:.5f} ms "
+        f"({f['bound_by']}: {f['bytes']} B, {f['operations']} op); ce/none "
+        f"mode {ce_none_ms:.4f} ms beside F.interpolate + F.cross_entropy "
+        f"{library_ms:.4f} ms")
+    log(f"[time] fused_loss backward, same shape, on {where}: kernel "
+        f"{bwd_ms:.4f} ms, plain (dense forward + backward) "
+        f"{plain_both_ms:.4f} ms, bound {b['bound_ms']:.5f} ms "
+        f"({b['bound_by']}: {b['bytes']} B, {b['operations']} op)")
+    return out
+
+
+def time_training(dev, tr, where, profile_dir) -> dict:
+    cfg, model, model_old = tr["cfg"], tr["model"], tr["model_old"]
+    train_step = make_train_step(cfg, model, model_old, total_iters=100)
+    state, old_vars, batch = tr["state"], tr["old_vars"], tr["batch"]
+    r = {"peak_mem_gb": tr["peak_gb"]}
+
+    def img_per_s(step, st, ov, b, n=10):
+        for _ in range(2):
+            step(st, b, ov)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step(st, b, ov)
+        torch.cuda.synchronize()
+        return len(b["label"]) * n / (time.perf_counter() - t0)
+
+    r["img_per_s"] = img_per_s(train_step, state, old_vars, batch)
+    r["step_ms"] = BATCH / r["img_per_s"] * 1e3
+
+    # the same step with a CUDA event recorded between its parts
+    events = []
+
+    def mark(name):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append((name, e))
+
+    marked_step = make_train_step(cfg, model, model_old, total_iters=100,
+                                  mark=mark)
+    sums = {}
+    n = 5
+    for _ in range(n):
+        events.clear()
+        marked_step(state, batch, old_vars)
+        torch.cuda.synchronize()
+        for (_, a), (k, b) in zip(events, events[1:]):
+            sums[k] = sums.get(k, 0.0) + a.elapsed_time(b) / n
+    r["device_ms"] = sums
+    log(f"[time] train step, MiB VOC 15-5s step 1, ResNet-101, batch "
+        f"{BATCH}, {SIZE}x{SIZE}, bf16 with f32 masters on {where}: "
+        f"{r['img_per_s']:.2f} img/s ({r['step_ms']:.2f} ms per step, host "
+        f"clock, synchronized per 10 steps); device ms between events: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in sums.items())
+        + f"; peak memory {r['peak_mem_gb']:.2f} GB")
+    if profile_dir:
+        profile(lambda: train_step(state, batch, old_vars), profile_dir,
+                "train_step", n=3)
+
+    # batch 16, the JAX package's headline batch; no assertion on it
+    del train_step
+    big = train_batches(1, 16, SIZE, cfg.tot_classes, seed=90)[0]
+    cfg16 = dataclasses.replace(cfg, batch_size=16)
+    torch.cuda.reset_peak_memory_stats()
+    step16 = make_train_step(cfg16, model, model_old, total_iters=100)
+    r["img_per_s_batch16"] = img_per_s(step16, state, old_vars, big, n=5)
+    r["peak_mem_gb_batch16"] = torch.cuda.max_memory_allocated() / 1e9
+    log(f"[time] train step at batch 16 on {where}: "
+        f"{r['img_per_s_batch16']:.2f} img/s, peak memory "
+        f"{r['peak_mem_gb_batch16']:.2f} GB")
+    return r
+
+
 def time_serving(dev, served, where, profile_dir) -> dict:
     predictor, imgs = served["predictor"], served["imgs"]
     model = served["model"]
@@ -417,42 +1003,48 @@ def time_serving(dev, served, where, profile_dir) -> dict:
         arg_ms = cuda_ms(lambda: FE.fused_argmax(z, (SIZE, SIZE)), iters=50)
     r = {"img_per_s": BATCH / sync_s, "batch_ms": sync_s * 1e3,
          "forward_sem_ms": fwd_ms, "fused_argmax_ms": arg_ms,
-         "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+         "peak_mem_gb": served["peak_gb"]}
     log(f"[time] predict_labels batch 8, 512x512, bf16 on {where}: "
         f"{r['img_per_s']:.2f} img/s ({r['batch_ms']:.2f} ms per batch incl. "
         f"upload and fetch); device: forward_sem {fwd_ms:.2f} ms, "
-        f"fused_argmax {arg_ms:.4f} ms; peak memory {r['peak_mem_gb']:.2f} GB")
+        f"fused_argmax {arg_ms:.4f} ms; peak memory over the serving phase "
+        f"{r['peak_mem_gb']:.2f} GB")
     if profile_dir:
-        profile(predictor, imgs, profile_dir)
+        profile(lambda: predictor.predict_labels(imgs).cpu(), profile_dir,
+                "predict_labels")
     return r
 
 
-def profile(predictor, imgs, out_dir):
+def profile(fn, out_dir, name, n=5):
+    """torch.profiler table of n calls of fn(), by device time."""
     from torch.profiler import ProfilerActivity
     from torch.profiler import profile as tprofile
 
     os.makedirs(out_dir, exist_ok=True)
     with tprofile(activities=[ProfilerActivity.CPU,
                               ProfilerActivity.CUDA]) as prof:
-        for _ in range(5):
-            predictor.predict_labels(imgs).cpu()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
     avg = prof.key_averages()
     try:
         table = avg.table(sort_by="device_time_total", row_limit=40)
     except (KeyError, AttributeError, RuntimeError):
         table = avg.table(sort_by="cuda_time_total", row_limit=40)
-    path = os.path.join(out_dir, "predict_labels_profile.txt")
+    path = os.path.join(out_dir, f"{name}_profile.txt")
     with open(path, "w") as f:
         f.write(table)
-    log(f"[profile] 5 x predict_labels -> {path}")
+    log(f"[profile] {n} x {name} -> {path}")
     log("\n".join(table.splitlines()[:20]))
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--profile", metavar="DIR", default=None,
-                    help="also write a torch.profiler table of "
-                         "predict_labels into DIR")
+                    help="also write torch.profiler tables of "
+                         "predict_labels and of the train step into DIR")
+    ap.add_argument("--only", choices=["kernels"], default=None,
+                    help="stop after the kernel checks (prints no result)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the "
@@ -461,43 +1053,89 @@ def main(argv=None) -> int:
     dev = torch.device("cuda", 0)
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    clock = [time.time()]
+
+    def lap(name):
+        clock.append(time.time())
+        log(f"[phase] {name}: {clock[-1] - clock[-2]:.1f} s")
 
     # phase 1: build
-    t0 = time.time()
     build.build(build.kernel_sources())
     where = card()
-    log(f"[build] {build.kernel_sources()} built in {time.time() - t0:.1f} s "
-        f"for {where}; torch {torch.__version__}, CUDA {torch.version.cuda}")
-    log(build.library_path(FE.KERNEL).with_suffix(".log").read_text().strip())
+    log(f"[build] {build.kernel_sources()} built for {where}; torch "
+        f"{torch.__version__}, CUDA {torch.version.cuda}")
+    for name in (FE.KERNEL, FL.KERNEL):
+        ptxas = build.library_path(name).with_suffix(".log").read_text()
+        # registers, shared memory, stack and spills of each kernel
+        log("\n".join(ln for ln in ptxas.splitlines()
+                      if "registers" in ln or "spill" in ln))
+    lap("1 build")
 
     # phase 2: every kernel against its plain version
     err = phase_kernels(dev)
+    loss_err = phase_loss_kernels(dev)
+    lap("2 kernels vs plain versions")
+    if args.only == "kernels":
+        return 0
 
-    # phase 3: the main path, with every launch count read over it alone
+    # phase 3a: the serving path, with every launch count read over it alone
     with tempfile.TemporaryDirectory() as tmp:
         npz = build_model(dev, tmp)
         FE.fused_argmax.launches = 0
         served = phase_serving(dev, npz)
-        launches = FE.fused_argmax.launches
-    assert launches > 0, "the serving path never launched fused_argmax"
-    log(f"[serve] fused_argmax launches on the serving path: {launches}")
+        serve_launches = FE.fused_argmax.launches
+    assert serve_launches > 0, "the serving path never launched fused_argmax"
+    log(f"[serve] fused_argmax launches on the serving path: "
+        f"{serve_launches}")
+    lap("3a serving path")
+
+    # phase 3b: the train path (it sets the counts to 0 and reads them)
+    phase_train_small(dev)
+    trained = phase_train(dev)
+    counts = trained["counts"]
+    assert min(counts.values()) > 0, counts
+    lap("3b train path")
 
     # phase 4: timings
     timing = time_fused_argmax(dev, where)
+    loss_timing = time_fused_loss(dev, where)
     serving = time_serving(dev, served, where, args.profile)
     log(json.dumps({"serving": {"card": where, **serving}}))
+    training = time_training(dev, trained, where, args.profile)
+    log(json.dumps({"training": {"card": where, **training}}))
+    lap("4 timings")
 
-    log(json.dumps({"kernels": [{
+    kernels = [{
         "name": "fused_argmax", "route": "cuda",
         "source": "ucd_torch/ops/csrc/fused_argmax.cu",
         "replaces": "ucd_tpu/ops/fused_eval.py:76",
         "replaces_fn": "ucd_tpu/ops/fused_eval.py::_argmax_kernel",
-        "launches": launches, "max_abs_err": err["max_abs_err"],
+        "launches": serve_launches + counts["fused_argmax"],
+        "launches_serving": serve_launches,
+        "launches_train": counts["fused_argmax"],
+        "max_abs_err": err["max_abs_err"],
         "mismatch_rate": err["mismatch_rate"],
         "ms": timing["ms"], "kernel_ms": timing["ms"],
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
-        "library_ms": timing["library_ms"]}]}))
+        "library_ms": timing["library_ms"]}]
+    for i, (name, line, fn, err_key) in enumerate((
+            ("fused_loss_fwd", 181, "_loss_kernel", "loss_err"),
+            ("fused_loss_bwd", 224, "_grad_kernel", "grad_err"))):
+        t = loss_timing[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "ucd_torch/ops/csrc/fused_loss.cu",
+            "replaces": f"ucd_tpu/ops/fused_loss.py:{line}",
+            "replaces_fn": f"ucd_tpu/ops/fused_loss.py::{fn}",
+            "launches": counts[name], "launches_serving": 0,
+            "launches_train": counts[name],
+            "launches_per_train_step":
+                trained["train_counts"][i] / trained["n_steps"],
+            "max_abs_err": loss_err[err_key],
+            "max_rel_grad_err": loss_err["grad_rel_err"],
+            **t, "kernel_ms": t["ms"]})
+    log(json.dumps({"kernels": kernels}))
     log(where)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

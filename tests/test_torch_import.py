@@ -23,6 +23,9 @@ def test_import_pulls_in_no_jax():
         "import sys\n"
         "import ucd_torch, ucd_torch.engine.server, ucd_torch.cli\n"
         "import ucd_torch.ops.fused_eval, ucd_torch.engine.export\n"
+        "import ucd_torch.config, ucd_torch.tasks, ucd_torch.ops.losses\n"
+        "import ucd_torch.ops.fused_loss, ucd_torch.engine.metrics\n"
+        "import ucd_torch.engine.train, ucd_torch.engine.state\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
@@ -31,6 +34,52 @@ def test_import_pulls_in_no_jax():
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, env=env, cwd=REPO, timeout=120)
     assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_importing_the_kernel_modules_builds_nothing():
+    """A fresh interpreter imports the kernel wrappers with an nvcc that
+    must not be called and a build directory that must stay absent: kernels
+    are built at first use on a CUDA tensor, never at import."""
+    code = (
+        "import os, subprocess, ucd_torch.ops.build as build\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError('a kernel build started at import')\n"
+        "subprocess.Popen = build.build = build.load = refuse\n"
+        "existed = build.BUILD_DIR.exists()\n"
+        "import ucd_torch.ops.fused_loss as FL\n"
+        "import ucd_torch.ops.fused_eval as FE\n"
+        "import ucd_torch.engine.train\n"
+        "assert build.BUILD_DIR.exists() == existed\n"
+        "assert FL.fused_ce_kd.launches_fwd == 0\n"
+        "assert FL.fused_ce_kd.launches_bwd == 0\n"
+        "assert 'fused_loss' in build.kernel_sources()\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, env=env, cwd=REPO, timeout=120)
+    assert res.returncode == 0 and res.stdout.strip() == "ok", res.stderr
+
+
+def test_train_entry_points_default_to_cuda():
+    """build_train_state runs on CUDA unless the caller passes a device."""
+    if torch.cuda.is_available():
+        pytest.skip("this host has a GPU: the default device is valid")
+    import dataclasses
+
+    from ucd_torch import config as C
+    from ucd_torch.engine.state import build_train_state
+    from ucd_torch.models import make_model
+
+    cfg = dataclasses.replace(
+        C.make_config(dataset="voc", task="19-1", step=0, crop_size=32),
+        backbone="resnet18")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_train_state(cfg, make_model(cfg),
+                          torch.Generator().manual_seed(0), 10)
+    state, old = build_train_state(cfg, make_model(cfg),
+                                   torch.Generator().manual_seed(0), 10,
+                                   device="cpu")
+    assert old is None and state.step == 0
 
 
 def _imported_modules(path):

@@ -11,7 +11,11 @@ for CUDA on a host without a GPU raises instead of falling back.
 
 Implemented so far: the serving path (`engine.export.load_inference` ->
 `engine.predictor.Predictor` -> `engine.server`), with the fused
-upsample+argmax kernel in `ops/csrc/fused_argmax.cu`.
+upsample+argmax kernel in `ops/csrc/fused_argmax.cu`; and the train and
+validate steps (`engine.state.build_train_state` ->
+`engine.train.make_train_step` / `make_eval_step`) for the FT / LWF / ILT /
+MiB methods, with the fused upsample+CE/KD forward and backward kernels in
+`ops/csrc/fused_loss.cu`.
 """
 
 from .device import resolve_device

@@ -1,4 +1,4 @@
-"""Host-side data constants of the port (the loaders come with the train
+"""Host-side data constants of the port (the loaders come with the experiment
 slice)."""
 
 from .transforms import IMAGENET_MEAN, IMAGENET_STD

@@ -1,6 +1,6 @@
 """ImageNet normalization constants (a copy of the values in
 ucd_tpu/data/transforms.py; the paired image/label transforms come with the
-train slice)."""
+experiment slice)."""
 
 from __future__ import annotations
 

@@ -1,3 +1,3 @@
-"""Serving engine of the port: inference npz loading, the Predictor, the
-micro-batching HTTP server (the train/eval engine comes with later
-slices)."""
+"""Engine of the port: the train and validate steps, train-state
+construction and metrics; inference npz loading, the Predictor and the
+micro-batching HTTP server."""

@@ -53,13 +53,15 @@ def load_inference(path: str, device=None):
     bf16_keys = set(meta.get("bf16_keys", ()))
     tensors = {k: _bf16_from_bits(v) if k in bf16_keys else torch.from_numpy(v)
                for k, v in flat.items()}
+    dtype = torch.bfloat16 if meta["dtype"] == "bfloat16" else torch.float32
     model = IncrementalSegmentationModel(
         classes=tuple(meta["classes"]),
         backbone=meta["backbone"],
         output_stride=meta["output_stride"],
         head_channels=meta["head_channels"],
         pooling_size=meta["pooling"],
-        dtype=torch.bfloat16 if meta["dtype"] == "bfloat16" else torch.float32,
+        dtype=dtype,
+        param_dtype=dtype,  # serving keeps the npz's weights as they are
     )
     model.load_state_dict(flax_to_state_dict(tensors), strict=True)
     model.to(device=dev, memory_format=torch.channels_last).eval()

@@ -1,0 +1,81 @@
+"""Train-state construction: seeded init, pretrained restore, cross-step
+growth.
+
+Counterpart of ucd_tpu/engine/state.py:
+  * fresh init from an explicit `torch.Generator`;
+  * cross-step restore of the previous step's variables into the new model
+    (the extra classifier keeps its init, optionally MiB-imprinted) and as
+    the frozen donor's variables;
+  * fresh optimizer state, step 0.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Mapping, Optional
+
+import torch
+
+from ..config import Config
+from ..device import resolve_device
+from ..models.segmentation import init_new_classifier, merge_old_params
+from .train import TrainState, make_optimizer
+
+
+def _on_device(sd: Mapping[str, torch.Tensor], like: Mapping[str,
+                                                          torch.Tensor],
+               device) -> Dict[str, torch.Tensor]:
+    """Detached copies on `device`, each in the dtype of the tensor of the
+    same name in `like` (what `load_state_dict` does for a module; a no-op
+    for f32 variables and f32 masters); 4-D tensors in channels_last
+    memory, the layout the model computes in."""
+    out = {}
+    for k, v in sd.items():
+        dtype = like[k].dtype if k in like else v.dtype
+        v = v.detach().to(device, dtype=dtype, copy=True)
+        if v.ndim == 4:
+            v = v.contiguous(memory_format=torch.channels_last)
+        out[k] = v
+    return out
+
+
+def build_train_state(cfg: Config, model, generator: torch.Generator,
+                      total_iters: int,
+                      prev_model_state: Optional[Mapping] = None,
+                      prev_reg_saved: Optional[Mapping] = None,
+                      pretrained_body: Optional[Mapping] = None,
+                      device=None):
+    """Build (state, old_vars); `model` is initialized in place and moved
+    to `device` (CUDA unless the caller passes one).
+
+    * step 0: fresh init drawn from `generator` (+ optional pretrained
+      body, a state_dict of `model.body`), no donor;
+    * step > 0: the previous step's state_dict merged into the fresh one
+      (new classifier entries keep their init), optional MiB imprinting,
+      donor = the previous step's variables verbatim (copied to `device`).
+    """
+    if cfg.regularizer is not None:
+        raise NotImplementedError(
+            "the EWC/PI/RW regularizers are not ported yet (ROADMAP A7)")
+    dev = resolve_device(device)
+    model.init_weights(generator)
+    sd = dict(model.state_dict())
+
+    if pretrained_body is not None:
+        sd = merge_old_params(
+            sd, {f"body.{k}": v for k, v in pretrained_body.items()})
+
+    old_vars = None
+    if prev_model_state is not None:
+        sd = merge_old_params(sd, prev_model_state)
+        if cfg.init_balanced:
+            sd = init_new_classifier(sd, cfg.new_classes)
+        old_vars = _on_device(prev_model_state, model.state_dict(), dev)
+
+    model.load_state_dict(sd, strict=True)
+    model.to(device=dev, memory_format=torch.channels_last)
+
+    tx = make_optimizer(cfg, total_iters)
+    state = TrainState(model=model,
+                       opt_state=tx.init(dict(model.named_parameters())),
+                       reg_state=None, step=0)
+    return state, old_vars

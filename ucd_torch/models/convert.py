@@ -15,6 +15,12 @@ mechanical:
 
 plus a zero `num_batches_tracked` per BatchNorm, so that
 `load_state_dict(..., strict=True)` sees every key of the module.
+
+Arrays keep their dtype in both directions (f32, f64 for the f64 test
+model; bf16 tensors widen to f32 on the way out). `load_flax_variables` and
+`module_to_flax` are the two directions for a whole module, e.g. a training
+model with f32 masters: one numpy tree goes into both packages, and both
+packages' post-step variables come back as numpy trees with the same keys.
 """
 
 from __future__ import annotations
@@ -61,7 +67,7 @@ def state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> dict:
         if leaf == "num_batches_tracked":
             continue
         prefix = "/".join(path)
-        t = t.detach().cpu()
+        t = t.detach().to("cpu", copy=True)  # never an alias of the model
         if t.dtype == torch.bfloat16:
             t = t.float()
         if leaf in _STAT_LEAF_INV:
@@ -76,3 +82,18 @@ def state_dict_to_flax(sd: Mapping[str, torch.Tensor]) -> dict:
         else:
             raise KeyError(f"unexpected state_dict entry {name!r}")
     return flat
+
+
+def load_flax_variables(model: torch.nn.Module,
+                        flat: Mapping[str, object]) -> torch.nn.Module:
+    """Load flat `params/...` + `batch_stats/...` arrays into `model`,
+    strictly (a missing or unexpected key raises); values are cast to the
+    dtype each of the module's tensors already has."""
+    model.load_state_dict(flax_to_state_dict(flat), strict=True)
+    return model
+
+
+def module_to_flax(model: torch.nn.Module) -> dict:
+    """Every parameter and BatchNorm statistic of `model` as flat
+    `params/...` + `batch_stats/...` numpy arrays."""
+    return state_dict_to_flax(model.state_dict())

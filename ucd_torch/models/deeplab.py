@@ -5,7 +5,10 @@ Counterpart of ucd_tpu/models/deeplab.py: four parallel map convolutions
 channel concat -> ABN -> 1x1 reduction, plus a pooling branch. In training,
 or without a `pooling_size`, the pooling branch is a true global average
 pool broadcast over space; in eval mode with a `pooling_size` it is a VALID
-sliding average pool replicate-padded back to the map size.
+sliding average pool replicate-padded back to the map size. "Training" is
+the module's own mode: a model trained under `fix_bn` runs its forward in
+eval mode (running statistics, no statistics update, sliding pool) with
+gradients still flowing, as the JAX model does with `train and not fix_bn`.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import ABN, conv, global_avg_pool
+from .layers import ABN, conv, global_avg_pool, wide_dtype
 
 
 class DeeplabV3(nn.Module):
@@ -24,24 +27,27 @@ class DeeplabV3(nn.Module):
                  hidden_channels: int = 256, out_stride: int = 16,
                  pooling_size: Optional[int] = None,
                  activation_param: float = 0.01,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        param_dtype = param_dtype or wide_dtype(dtype)
         self.pooling_size = pooling_size
         dilations = [6, 12, 18] if out_stride == 16 else [12, 24, 32]
         hc = hidden_channels
         abn = dict(activation_param=activation_param, dtype=dtype)
-        self.map_conv0 = conv(in_channels, hc, 1, dtype=dtype)
+        self.map_conv0 = conv(in_channels, hc, 1, dtype=param_dtype)
         self.map_conv1 = conv(in_channels, hc, 3, dilation=dilations[0],
-                              dtype=dtype)
+                              dtype=param_dtype)
         self.map_conv2 = conv(in_channels, hc, 3, dilation=dilations[1],
-                              dtype=dtype)
+                              dtype=param_dtype)
         self.map_conv3 = conv(in_channels, hc, 3, dilation=dilations[2],
-                              dtype=dtype)
+                              dtype=param_dtype)
         self.map_bn = ABN(4 * hc, **abn)
-        self.red_conv = conv(4 * hc, out_channels, 1, dtype=dtype)
-        self.global_pooling_conv = conv(in_channels, hc, 1, dtype=dtype)
+        self.red_conv = conv(4 * hc, out_channels, 1, dtype=param_dtype)
+        self.global_pooling_conv = conv(in_channels, hc, 1,
+                                        dtype=param_dtype)
         self.global_pooling_bn = ABN(hc, **abn)
-        self.pool_red_conv = conv(hc, out_channels, 1, dtype=dtype)
+        self.pool_red_conv = conv(hc, out_channels, 1, dtype=param_dtype)
         self.red_bn = ABN(out_channels, **abn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

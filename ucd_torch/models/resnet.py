@@ -9,13 +9,13 @@ weight bridge (models/convert.py) is a pure name mapping.
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import ABN, conv
+from .layers import ABN, conv, wide_dtype
 
 STRUCTURES = {
     "resnet18": ([2, 2, 2, 2], False),
@@ -34,31 +34,36 @@ class ResidualBlock(nn.Module):
     def __init__(self, in_channels: int, channels: Sequence[int],
                  stride: int = 1, dilation: int = 1,
                  activation_param: float = 0.01,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        param_dtype = param_dtype or wide_dtype(dtype)
         ch = tuple(channels)
         self.is_bottleneck = len(ch) == 3
         self.activation_param = activation_param
         out_ch = ch[-1]
         self.need_proj = stride != 1 or in_channels != out_ch
         if self.need_proj:
-            self.proj_conv = conv(in_channels, out_ch, 1, stride, dtype=dtype)
+            self.proj_conv = conv(in_channels, out_ch, 1, stride,
+                                  dtype=param_dtype)
             self.proj_bn = ABN(out_ch, "identity", dtype=dtype)
         if self.is_bottleneck:
-            self.conv1 = conv(in_channels, ch[0], 1, dtype=dtype)
+            self.conv1 = conv(in_channels, ch[0], 1, dtype=param_dtype)
             self.bn1 = ABN(ch[0], activation_param=activation_param,
                            dtype=dtype)
-            self.conv2 = conv(ch[0], ch[1], 3, stride, dilation, dtype=dtype)
+            self.conv2 = conv(ch[0], ch[1], 3, stride, dilation,
+                              dtype=param_dtype)
             self.bn2 = ABN(ch[1], activation_param=activation_param,
                            dtype=dtype)
-            self.conv3 = conv(ch[1], ch[2], 1, dtype=dtype)
+            self.conv3 = conv(ch[1], ch[2], 1, dtype=param_dtype)
             self.bn3 = ABN(ch[2], "identity", dtype=dtype)
         else:
             self.conv1 = conv(in_channels, ch[0], 3, stride, dilation,
-                              dtype=dtype)
+                              dtype=param_dtype)
             self.bn1 = ABN(ch[0], activation_param=activation_param,
                            dtype=dtype)
-            self.conv2 = conv(ch[0], ch[1], 3, 1, dilation, dtype=dtype)
+            self.conv2 = conv(ch[0], ch[1], 3, 1, dilation,
+                              dtype=param_dtype)
             self.bn2 = ABN(ch[1], "identity", dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -80,12 +85,17 @@ class ResNet(nn.Module):
     The JAX package's `stem_s2d` option computes the same 7x7/s2 stem conv
     space-to-depth packed, a TPU layout over the same (7,7,3,64) parameter
     that is exactly equivalent; the port always computes the plain strided
-    conv."""
+    conv.
+
+    `dtype` is the compute dtype; `param_dtype` the dtype of the stored conv
+    weights (default f32 masters, f64 for the f64 test dtype)."""
 
     def __init__(self, structure: Sequence[int] = (3, 4, 23, 3),
                  bottleneck: bool = True, output_stride: int = 16,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 param_dtype: Optional[torch.dtype] = None):
         super().__init__()
+        param_dtype = param_dtype or wide_dtype(dtype)
         if output_stride == 16:
             dilation = [1, 1, 1, 2]
         elif output_stride == 8:
@@ -94,7 +104,7 @@ class ResNet(nn.Module):
             raise ValueError("output stride must be 8 or 16")
         self.out_channels = (256 if bottleneck else 64) * 8
 
-        self.mod1_conv1 = conv(3, 64, 7, 2, dtype=dtype)
+        self.mod1_conv1 = conv(3, 64, 7, 2, dtype=param_dtype)
         self.mod1_bn1 = ABN(64, dtype=dtype)
         self.block_names = []
         channels = (64, 64, 256) if bottleneck else (64, 64)
@@ -105,7 +115,8 @@ class ResNet(nn.Module):
                 stride = 2 if d == 1 and block_id == 0 and mod_id > 0 else 1
                 name = f"mod{mod_id + 2}_block{block_id + 1}"
                 self.add_module(name, ResidualBlock(
-                    in_ch, channels, stride=stride, dilation=d, dtype=dtype))
+                    in_ch, channels, stride=stride, dilation=d, dtype=dtype,
+                    param_dtype=param_dtype))
                 self.block_names.append(name)
                 in_ch = channels[-1]
             channels = tuple(c * 2 for c in channels)

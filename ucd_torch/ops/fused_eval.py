@@ -61,7 +61,9 @@ def taps(n_in: int, n_out: int, identity: bool = False):
 _device_taps: Dict[tuple, tuple] = {}
 
 
-def _taps_on(device, h: int, H: int, w: int, W: int):
+def taps_on(device, h: int, H: int, w: int, W: int):
+    """The six tap tables (iy0, iy1, fy, ix0, ix1, fx) of (h, w) -> (H, W)
+    as tensors on `device`, uploaded once per device and shape."""
     key = (str(device), h, H, w, W)
     if key not in _device_taps:
         identity = h == H and w == W
@@ -109,7 +111,7 @@ def _launch(logits_lr: torch.Tensor, H: int, W: int) -> torch.Tensor:
         raise ValueError(f"grid limit: batch {B} or height {H} > 65535")
     fn = _kernel_fns()[logits_lr.dtype]
     device = logits_lr.device
-    iy0, iy1, fy, ix0, ix1, fx = _taps_on(device, h, H, w, W)
+    iy0, iy1, fy, ix0, ix1, fx = taps_on(device, h, H, w, W)
     out = torch.empty((B, H, W), dtype=torch.int32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
