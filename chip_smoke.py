@@ -13,7 +13,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      the fused upsample+CE/KD forward and backward kernels (the six-mode
      matrix at the train shape, ADE's class counts, a non-multiple shape,
      identity resolution, alpha 2, all-ignore labels, uint8 vs int32
-     labels, bit-reproducible backward);
+     labels, bit-reproducible backward) and the three tiled contrastive
+     kernels (pass 1, pass 2, backward and the composed loss at the train
+     shape in f32 and bf16 mode, ADE's 151 probabilities, non-aligned
+     P = 50 / C = 7, a feature width beyond one backward slice, a compacted
+     batch, no GT-new pixel, no valid anchor, bit-reproducible backward,
+     and the tiled loss against the dense one);
   3. drive the two main paths at full width (ResNet-101 DeepLab-v3, os 16,
      head 256, pooling 32; seeded random weights with BN statistics
      calibrated on one seeded batch), each with the kernels' launch counts
@@ -21,8 +26,9 @@ Phases (any failure exits non-zero, and no result line is printed):
      a. serving: VOC 15-5s's six heads (21 classes) written as a bf16
         `ucd_tpu.inference.v1` npz and served through load_inference ->
         Predictor -> MicroBatcher -> HTTP;
-     b. training: VOC 15-5s step 1 with the MiB preset (unbiased CE +
-        unbiased KD x10, imprinted new classifier, cls_0 frozen), bf16
+     b. training: VOC 15-5s step 1 with the UCD preset (unbiased CE +
+        unbiased KD x10 + the pixel-contrastive term x0.01 through the
+        tiled kernels, imprinted new classifier, cls_0 frozen), bf16
         compute with f32 masters, batch 8 of 512x512 uint8 images:
         build_train_state -> make_train_step for 12 steps (after the
         first, every BN's running statistics are held against the batch
@@ -32,9 +38,10 @@ Phases (any failure exits non-zero, and no result line is printed):
         where it must agree with the train-mode forward;
         plus one f32 ResNet-50 step at 64x64 on the card against the same
         step on the CPU;
-  4. time each kernel beside its plain version, one library call and its
-     roofline bound, the serving throughput and the train-step throughput
-     at batch 8 (and 16), 512x512, bf16.
+  4. time each kernel beside its plain version, one library call (where
+     one exists) and its roofline bound, the serving throughput and the
+     train-step throughput under UCD and under MiB at batch 8 (UCD also at
+     16), 512x512, bf16.
 
 The last three lines of stdout are the `{"kernels": [...]}` record, the
 card's name and power limit (nvidia-smi), and `{"ok": true, "device": ...}`.
@@ -78,17 +85,21 @@ from ucd_torch.models import (IncrementalSegmentationModel,  # noqa: E402
                               make_model)
 from ucd_torch.models.segmentation import resize_bilinear  # noqa: E402
 from ucd_torch.ops import build  # noqa: E402
+from ucd_torch.ops import contrastive as CT  # noqa: E402
 from ucd_torch.ops import fused_eval as FE  # noqa: E402
 from ucd_torch.ops import fused_loss as FL  # noqa: E402
+from ucd_torch.ops import tiled_contrastive as TT  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
+BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 in the tensor cores
 # VOC 15-5s at its last step: the model README.md's export example serves
 CLASSES = (16, 1, 1, 1, 1, 1)
 BATCH, SIZE = 8, 512
 SMALL = (375, 500)  # VOC's most common image size: bucket 384x512
-# the train path: VOC 15-5s step 1 under the MiB preset
-TRAIN = dict(dataset="voc", task="15-5s", step=1, method="MiB",
+# the train path: VOC 15-5s step 1 under the UCD preset (MiB + the
+# pixel-contrastive term)
+TRAIN = dict(dataset="voc", task="15-5s", step=1, method="UCD",
              backbone="resnet101", batch_size=BATCH, crop_size=SIZE,
              lr=0.001)
 TRAIN_STEPS_FRESH, TRAIN_STEPS_REPEAT = 4, 8
@@ -330,6 +341,204 @@ def phase_loss_kernels(dev) -> dict:
     return worst
 
 
+# Tiled contrastive kernels vs their plain versions. f32 mode: the JAX
+# package's on-device gate for its own kernels (bench.py:87-91), loss rel err
+# and |dA - ref| / |ref| (Frobenius) <= 1e-4, `num` exact; the per-anchor
+# sums get the same 1e-4 (relative to each sum, plus 1e-6 of the largest).
+# bf16 mode: kernel and plain version round at the same points, so they keep
+# the 1e-4 on the forward sums and 1e-3 on dA (a last-bit f32 difference in
+# dL/dadc can flip its bf16 rounding); against the f32 dense loss the bf16
+# mode stays within 3e-2 (loss) / 5e-2 of the largest gradient entry
+# (bench.py:105-108).
+TAU = 0.07
+CON_TOL = {torch.float32: (1e-4, 1e-4), torch.bfloat16: (1e-4, 1e-3)}
+CON_BF16_VS_DENSE = (3e-2, 5e-2)
+CON_MAIN = dict(B=BATCH, h=SIZE // 16, w=SIZE // 16, D=256, C=16, H=SIZE,
+                W=SIZE, max_label=20, n_label=21)
+
+
+def contrastive_batch(dev, seed, B, h, w, D, C, H, W, max_label, n_label,
+                      capacity=0, labels=None, bkg_logit=0.0, n_old=None):
+    """A seeded contrastive batch on `dev`, made by `build_contrastive_batch`
+    as the train step makes it: new-model features, donor features
+    correlated with them, donor logits over C classes, block-structured
+    uint8 labels with 255 regions (or `labels`). As an incremental step's
+    dataset has them, ids below `n_old` (default C, the donor's classes)
+    are background and only the new ids up to `n_label` - 1 are labelled:
+    those pixels are GT-new, the others take the donor's pseudo-label."""
+    g = torch.Generator().manual_seed(seed)
+    f_n = torch.randn(B, h, w, D, generator=g)
+    f_o = 0.6 * f_n + 0.8 * torch.randn(B, h, w, D, generator=g)
+    l_po = torch.randn(B, h, w, C, generator=g) * 3
+    l_po[..., 0] += bkg_logit
+    if labels is None:
+        labels = torch.from_numpy(make_labels(B, H, W, n_label, seed + 1))
+        labels[labels < (C if n_old is None else n_old)] = 0
+    batch = CT.build_contrastive_batch(f_n.to(dev), labels.to(dev),
+                                       l_po.to(dev), f_o.to(dev), max_label)
+    return CT.compact_batch(batch, capacity)
+
+
+def tiled_loss_and_grad(fn, batch, *args):
+    af = batch.anchor_feat.detach().requires_grad_(True)
+    loss = fn(batch._replace(anchor_feat=af), *args)
+    (g,) = torch.autograd.grad(loss, af)
+    return loss.detach(), g
+
+
+def rel_rows(got, want) -> float:
+    """Largest |got - want| over the anchors, relative to |want| + 1e-6 of
+    the largest |want|."""
+    scale = want.abs() + 1e-6 * float(want.abs().max()) + 1e-30
+    return float(((got - want).abs() / scale).max())
+
+
+def check_contrastive(batch, dtype) -> dict:
+    """The three kernels and the composed loss against the plain versions on
+    the same CUDA batch; each stage is fed the plain version's inputs."""
+    fn = TT.pixel_contrastive_loss_tiled
+    before = (fn.launches_pass1, fn.launches_pass2, fn.launches_bwd)
+    fwd_tol, bwd_tol = CON_TOL[dtype]
+    neg_p, num_p = TT.pass1_plain(batch, TAU, dtype)
+    s_p, g_p = TT.pass2_plain(batch, neg_p, TAU, dtype)
+    coef = TT.backward_coef(num_p, torch.ones((), device=neg_p.device))
+    da_p = TT.bwd_plain(batch, neg_p, g_p, coef, TAU, dtype)
+    prep = TT.prepare(batch, dtype)
+    neg, num = TT.launch_pass1(prep, TAU)
+    s, g = TT.launch_pass2(prep, neg_p, TAU)
+    da = TT.launch_bwd(prep, neg_p, g_p, coef, TAU)
+    torch.cuda.synchronize()
+    assert (fn.launches_pass1, fn.launches_pass2, fn.launches_bwd) == tuple(
+        b + 1 for b in before)
+    for t in (neg, num, s, g, da):
+        assert t.dtype == torch.float32 and bool(torch.isfinite(t).all())
+    assert torch.equal(num, num_p), "positive counts differ"
+    r = {"neg_rel": rel_rows(neg, neg_p), "s_rel": rel_rows(s, s_p),
+         "g_rel": rel_rows(g, g_p),
+         "neg_abs": float((neg - neg_p).abs().max()),
+         "s_abs": float((s - s_p).abs().max()),
+         "da_abs": float((da - da_p).abs().max())}
+    ref = float(torch.linalg.vector_norm(da_p))
+    r["da_rel"] = float(torch.linalg.vector_norm(da - da_p)) / ref \
+        if ref > 0 else float(da.abs().max())
+    for k in ("neg_rel", "s_rel", "g_rel"):
+        assert r[k] <= fwd_tol, (k, r[k])
+    assert r["da_rel"] <= bwd_tol, r["da_rel"]
+    # the composed loss and its gradient through autograd
+    loss, grad = tiled_loss_and_grad(fn, batch, TAU, dtype)
+    loss_p, grad_p = tiled_loss_and_grad(
+        TT.pixel_contrastive_loss_tiled_plain, batch, TAU, dtype)
+    ref = float(torch.linalg.vector_norm(grad_p))
+    r["loss"] = float(loss)
+    r["loss_rel"] = abs(float(loss) - float(loss_p)) / max(
+        abs(float(loss_p)), 1e-30) if float(loss_p) != 0 else abs(float(loss))
+    r["grad_rel"] = float(torch.linalg.vector_norm(grad - grad_p)) / ref \
+        if ref > 0 else float(grad.abs().max())
+    assert r["loss_rel"] <= fwd_tol and r["grad_rel"] <= bwd_tol, r
+    r["valid_anchors"] = int(batch.anchor_valid.sum())
+    r["anchors_with_positives"] = int((num > 0).sum())
+    return r
+
+
+def phase_contrastive_kernels(dev) -> dict:
+    worst = {}
+
+    def run(name, batch, dtype):
+        r = check_contrastive(batch, dtype)
+        mode = "bf16" if dtype == torch.bfloat16 else "f32"
+        log(f"[kernel] tiled_contrastive {name} {mode}: ok {json.dumps(r)}")
+        for k, v in r.items():
+            if k.endswith(("_rel", "_abs")):
+                worst[k] = max(worst.get(k, 0.0), v)
+        return r
+
+    main = contrastive_batch(dev, 60, **CON_MAIN)
+    P, D = main.anchor_feat.shape
+    assert (P, D) == (BATCH * (SIZE // 16) ** 2, 256)
+    assert main.contrast_feat.shape[0] == 2 * P
+    assert main.anchor_is_new.any() and not main.anchor_valid.all()
+    for dtype in (torch.float32, torch.bfloat16):
+        r = run(f"train shape P={P} M={2 * P} D=256 C=16", main, dtype)
+        assert r["anchors_with_positives"] > P // 4, r
+        # the backward twice: same bits
+        a = tiled_loss_and_grad(TT.pixel_contrastive_loss_tiled, main, TAU,
+                                dtype)
+        b = tiled_loss_and_grad(TT.pixel_contrastive_loss_tiled, main, TAU,
+                                dtype)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+    log("[kernel] tiled_contrastive forward + backward run twice: same bits")
+    ade = contrastive_batch(dev, 61, **dict(CON_MAIN, B=2, C=151, n_old=101,
+                                            max_label=150, n_label=151))
+    for dtype in (torch.float32, torch.bfloat16):
+        run(f"ADE P={ade.anchor_feat.shape[0]} C=151", ade, dtype)
+    small = dict(B=2, h=5, w=5, D=8, C=7, H=20, W=20, max_label=6, n_label=7,
+                 n_old=4)
+    run("non-aligned P=50 M=100 D=8 C=7", contrastive_batch(dev, 62, **small),
+        torch.float32)
+    wide = dict(B=2, h=10, w=10, D=300, C=16, H=160, W=160, max_label=20,
+                n_label=21)
+    run("wide P=200 D=300 (two backward slices)",
+        contrastive_batch(dev, 63, **wide), torch.float32)
+    run("wide P=200 D=300 (two backward slices)",
+        contrastive_batch(dev, 63, **wide), torch.bfloat16)
+    mid = dict(CON_MAIN, B=2, h=8, w=8, H=128, W=128)
+    compact = contrastive_batch(dev, 64, capacity=100, **mid)
+    assert compact.anchor_feat.shape[0] == 100
+    run("compacted to capacity 100", compact, torch.float32)
+    no_new = contrastive_batch(
+        dev, 65, labels=torch.zeros(2, 128, 128, dtype=torch.uint8), **mid)
+    assert not no_new.anchor_is_new.any() and no_new.anchor_valid.any()
+    run("no GT-new pixel", no_new, torch.float32)
+    # no valid anchor at all: loss exactly 0, gradient exactly 0
+    empty = contrastive_batch(
+        dev, 66, labels=torch.zeros(2, 128, 128, dtype=torch.uint8),
+        bkg_logit=60.0, **mid)
+    assert not empty.anchor_valid.any()
+    for dtype in (torch.float32, torch.bfloat16):
+        loss, grad = tiled_loss_and_grad(TT.pixel_contrastive_loss_tiled,
+                                         empty, TAU, dtype)
+        assert float(loss) == 0.0 and not grad.any(), float(loss)
+    log("[kernel] tiled_contrastive no valid anchor: loss 0, gradient 0")
+
+    # against the dense loss at a mid shape: f32 mode within the kernel
+    # bounds, bf16 mode within bf16 rounding of it
+    midb = contrastive_batch(dev, 67, **dict(CON_MAIN, B=2))
+    dense, g_dense = tiled_loss_and_grad(CT.pixel_contrastive_loss, midb, TAU)
+    scale = float(g_dense.abs().max())
+    for dtype, (l_tol, g_tol) in ((torch.float32, (1e-4, 1e-4)),
+                                  (torch.bfloat16, CON_BF16_VS_DENSE)):
+        loss, grad = tiled_loss_and_grad(TT.pixel_contrastive_loss_tiled,
+                                         midb, TAU, dtype)
+        l_err = abs(float(loss) - float(dense)) / abs(float(dense))
+        g_err = float((grad - g_dense).abs().max()) / scale
+        log(f"[kernel] tiled_contrastive vs dense at "
+            f"P={midb.anchor_feat.shape[0]} "
+            f"{'bf16' if dtype == torch.bfloat16 else 'f32'}: loss "
+            f"{float(loss):.6f} / {float(dense):.6f} (rel {l_err:.3g}), "
+            f"gradient max err {g_err:.3g} of its largest entry")
+        assert l_err <= l_tol and g_err <= g_tol, (l_err, g_err)
+        worst["bf16_vs_dense_loss" if dtype == torch.bfloat16
+              else "f32_vs_dense_loss"] = l_err
+        worst["bf16_vs_dense_grad" if dtype == torch.bfloat16
+              else "f32_vs_dense_grad"] = g_err
+    # float32-only, CUDA-only, same-device contract: anything else raises
+    for bad in (lambda: TT.pixel_contrastive_loss_tiled(main, TAU,
+                                                        torch.float16),
+                lambda: TT.pixel_contrastive_loss_tiled(main._replace(
+                    anchor_feat=main.anchor_feat.double()), TAU),
+                lambda: TT.pixel_contrastive_loss_tiled(main._replace(
+                    contrast_label=main.contrast_label.long()), TAU),
+                lambda: TT.pixel_contrastive_loss_tiled(main._replace(
+                    contrast_prob=main.contrast_prob[:, :8]), TAU)):
+        try:
+            bad()
+        except (TypeError, ValueError):
+            continue
+        raise AssertionError("pixel_contrastive_loss_tiled accepted an "
+                             "input it cannot take")
+    return worst
+
+
 # ---------------------------------------------------------------------------
 # phase 3: the full-width serving path
 # ---------------------------------------------------------------------------
@@ -561,28 +770,41 @@ def build_train(dev, cfg, prev_sd, seed=1):
 
 def check_fused_vs_dense(cfg, model, model_old, old_vars, batch, dev):
     """On one batch, the step's loss terms through the kernels equal the
-    dense path's (f32 upsample + ops.losses) within the kernel tolerances,
-    and so does the gradient on the low-res logits."""
+    dense path's (f32 upsample + ops.losses; the dense f32 contrastive
+    loss): CE and KD within the fused-loss kernel tolerances, and so the
+    gradient on the low-res logits; the contrastive term, which the bf16
+    policy runs in the kernels' bf16 mode, within bf16 rounding of the dense
+    f32 loss (3e-2; gradient on the new model's pre_logits within 5e-2 of
+    its largest entry)."""
     x = torch.from_numpy(batch["image"]).to(dev).permute(0, 3, 1, 2)
     labels = torch.from_numpy(batch["label"]).to(dev)
     model.eval()
     with torch.no_grad():
-        sem = model.forward_feats(x)["sem"].permute(0, 2, 3, 1).contiguous()
+        feats = model.forward_feats(x, attention=True)
         _, f_old = torch.func.functional_call(
             model_old, old_vars, (x,), {"upsample": False,
-                                        "attention": False})
-        sem_old = f_old["sem"].permute(0, 2, 3, 1).contiguous()
+                                        "attention": True})
+    sem, sem_old = (f["sem"].permute(0, 2, 3, 1).contiguous()
+                    for f in (feats, f_old))
+    pre, pre_old = (f["pre_logits"].permute(0, 2, 3, 1)
+                    for f in (feats, f_old))
     assert sem.shape == (BATCH, SIZE // 16, SIZE // 16, cfg.tot_classes)
     assert sem.dtype == torch.float32 and bool(torch.isfinite(sem).all())
+    assert pre.shape == (BATCH, SIZE // 16, SIZE // 16, 256)
+    assert pre.dtype == pre_old.dtype == torch.bfloat16
     out = {}
     for name, c in (("fused", cfg), ("dense", dataclasses.replace(
-            cfg, fused_loss=False, bf16_upsample=False))):
+            cfg, fused_loss=False, bf16_upsample=False,
+            use_pallas_contrastive=False))):
         z = sem.clone().requires_grad_(True)
-        terms = compute_train_losses(c, None, {"sem": z}, labels, None,
-                                     {"sem": sem_old})
-        (g,) = torch.autograd.grad(terms["loss_tot"], z)
-        out[name] = ({k: float(v.detach()) for k, v in terms.items()}, g)
-    (tf, gf), (td, gd) = out["fused"], out["dense"]
+        f = pre.clone().requires_grad_(True)
+        terms = compute_train_losses(
+            c, None, {"sem": z, "pre_logits": f}, labels, None,
+            {"sem": sem_old, "pre_logits": pre_old})
+        g, gf = torch.autograd.grad(terms["loss_tot"], (z, f))
+        out[name] = ({k: float(v.detach()) for k, v in terms.items()}, g,
+                     gf.float())
+    (tf, gf, cf), (td, gd, cd) = out["fused"], out["dense"]
     for k in ("loss", "lkd"):
         # lkd carries the x10 weight, so its absolute bound scales with it
         scale = cfg.loss_kd if k == "lkd" else 1.0
@@ -590,9 +812,20 @@ def check_fused_vs_dense(cfg, model, model_old, old_vars, batch, dev):
             td[k]), (k, tf[k], td[k])
     rel = float((gf - gd).abs().max()) / (float(gd.abs().max()) + 1e-12)
     assert rel <= GRAD_TOL, rel
-    log(f"[train] first batch, fused vs dense: loss {tf['loss']:.6f} / "
+    assert td["l_con"] > 0, td
+    con_rel = abs(tf["l_con"] - td["l_con"]) / td["l_con"]
+    con_grad = float((cf - cd).abs().max()) / (float(cd.abs().max()) + 1e-30)
+    assert con_rel <= CON_BF16_VS_DENSE[0], (tf["l_con"], td["l_con"])
+    assert con_grad <= CON_BF16_VS_DENSE[1], con_grad
+    for t in (tf, td):
+        assert abs(t["loss_tot"] - (t["loss"] + t["lkd"] + t["l_con"]
+                                    + t["lde"])) <= 1e-5 * abs(t["loss_tot"])
+    log(f"[train] first batch, kernels vs dense: loss {tf['loss']:.6f} / "
         f"{td['loss']:.6f}, lkd {tf['lkd']:.6f} / {td['lkd']:.6f}, "
-        f"d loss_tot / d sem max rel err {rel:.3g}")
+        f"d loss_tot / d sem max rel err {rel:.3g}; l_con (bf16 kernels vs "
+        f"dense f32) {tf['l_con']:.6f} / {td['l_con']:.6f} (rel "
+        f"{con_rel:.3g}), d loss_tot / d pre_logits max err {con_grad:.3g} "
+        f"of its largest entry")
 
 
 BN_STAT_TOL = 2e-5
@@ -668,6 +901,8 @@ def phase_train(dev) -> dict:
     assert cfg.classes_per_step == [16, 1] and cfg.old_classes == 16
     assert cfg.unce and cfg.unkd and cfg.init_balanced and cfg.loss_kd == 10
     assert cfg.dtype == "bfloat16" and cfg.fused_loss
+    assert cfg.contrastive and cfg.use_pallas_contrastive
+    assert cfg.contrastive_weight == 0.01 and cfg.contrastive_capacity == 0
     step0 = calibrated_model(dev, (16,), backbone=cfg.backbone, seed=5)
     prev_sd = {k: v.clone() for k, v in step0.state_dict().items()}
     del step0
@@ -695,6 +930,8 @@ def phase_train(dev) -> dict:
     # ---- the main path: counts set to 0 here, read right after it ----
     FL.fused_ce_kd.launches_fwd = FL.fused_ce_kd.launches_bwd = 0
     FE.fused_argmax.launches = 0
+    con = TT.pixel_contrastive_loss_tiled
+    con.launches_pass1 = con.launches_pass2 = con.launches_bwd = 0
     history = []
     bn_records, hooks = watch_batch_stats(model)  # over the first step
     for i in range(n_steps):
@@ -705,7 +942,11 @@ def phase_train(dev) -> dict:
             for h in hooks:
                 h.remove()
             bn_err = check_running_stats(model, bn_records)
-    train_counts = (FL.fused_ce_kd.launches_fwd, FL.fused_ce_kd.launches_bwd)
+    train_counts = {"fused_loss_fwd": FL.fused_ce_kd.launches_fwd,
+                    "fused_loss_bwd": FL.fused_ce_kd.launches_bwd,
+                    "contrastive_pass1": con.launches_pass1,
+                    "contrastive_pass2": con.launches_pass2,
+                    "contrastive_bwd": con.launches_bwd}
     hist = empty_confusion(cfg.tot_classes)
     val_terms = []
     for batch in val:
@@ -714,22 +955,33 @@ def phase_train(dev) -> dict:
     torch.cuda.synchronize()
     counts = {"fused_loss_fwd": FL.fused_ce_kd.launches_fwd,
               "fused_loss_bwd": FL.fused_ce_kd.launches_bwd,
-              "fused_argmax": FE.fused_argmax.launches}
+              "fused_argmax": FE.fused_argmax.launches,
+              "contrastive_pass1": con.launches_pass1,
+              "contrastive_pass2": con.launches_pass2,
+              "contrastive_bwd": con.launches_bwd}
     # ------------------------------------------------------------------
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
 
     for i, m in enumerate(history):
         assert all(np.isfinite(v) for v in m.values()), (i, m)
+        assert m["l_con"] > 0, (i, m)
+        assert abs(m["loss_tot"] - (m["loss"] + m["lkd"] + m["l_con"])) \
+            <= 1e-5 * abs(m["loss_tot"]), (i, m)
         log(f"[train] step {i}: " + ", ".join(
-            f"{k} {m[k]:.5f}" for k in ("loss", "lkd", "loss_tot", "lr")))
-    assert train_counts == (n_steps, n_steps), train_counts
+            f"{k} {m[k]:.5f}" for k in ("loss", "lkd", "l_con", "loss_tot",
+                                        "lr")))
+    assert set(train_counts.values()) == {n_steps}, train_counts
     log(f"[train] after the first step, the {len(bn_records)} BNs' running "
         f"statistics equal old + 0.1 * (batch mean / biased batch variance "
         f"recomputed in plain f32 - old): worst error {bn_err:.3g} of a "
         f"tensor's largest entry (bound {BN_STAT_TOL})")
+    # the validate step computes no contrastive term
     assert counts == {"fused_loss_fwd": n_steps + len(val),
                       "fused_loss_bwd": n_steps,
-                      "fused_argmax": len(val)}, counts
+                      "fused_argmax": len(val),
+                      "contrastive_pass1": n_steps,
+                      "contrastive_pass2": n_steps,
+                      "contrastive_bwd": n_steps}, counts
     assert state.step == n_steps and state.opt_state["count"] == n_steps
     after = model.state_dict()
     params = dict(model.named_parameters())
@@ -770,9 +1022,11 @@ def phase_train(dev) -> dict:
 
 
 def phase_train_small(dev):
-    """One f32 ResNet-50 MiB step at 64x64, batch 2, on the card (kernels,
-    TF32 off) against the same step on the CPU (plain versions): loss terms
-    within 1e-4 relative, and the new classifier's gradient (well
+    """One f32 ResNet-50 UCD step at 64x64, batch 2, on the card (kernels,
+    the contrastive ones in f32 mode, TF32 off) against the same step on
+    the CPU (plain versions): loss terms within 1e-4 relative (`l_con`
+    within 1e-3: adc = a.c / tau amplifies the forward's card-vs-CPU
+    rounding 14 times), and the new classifier's gradient (well
     conditioned, unlike the gradients below the BN stack) within 1e-3 of
     its largest entry."""
     kw = dict(TRAIN, backbone="resnet50", batch_size=2, crop_size=64,
@@ -787,22 +1041,30 @@ def phase_train_small(dev):
         model, model_old, state, old_vars = build_train(d, cfg, prev_sd)
         step = make_train_step(cfg, model, model_old, total_iters=100,
                                device=d)
-        before = (FL.fused_ce_kd.launches_fwd, FL.fused_ce_kd.launches_bwd)
+        con = TT.pixel_contrastive_loss_tiled
+
+        def launches():
+            return (FL.fused_ce_kd.launches_fwd, FL.fused_ce_kd.launches_bwd,
+                    con.launches_pass1, con.launches_pass2,
+                    con.launches_bwd)
+        before = launches()
         _, metrics = step(state, batch, old_vars)
-        used = (FL.fused_ce_kd.launches_fwd - before[0],
-                FL.fused_ce_kd.launches_bwd - before[1])
-        assert used == ((1, 1) if d.type == "cuda" else (0, 0)), (name, used)
+        used = tuple(a - b for a, b in zip(launches(), before))
+        assert used == ((1,) * 5 if d.type == "cuda" else (0,) * 5), (
+            name, used)
         out[name] = ({k: float(v) for k, v in metrics.items()},
                      model.cls_1.weight.grad.detach().cpu().flatten(),
                      model.cls_1.bias.grad.detach().cpu())
     (tc, wc, bc), (tg, wg, bg) = out["cpu"], out["card"]
-    for k in ("loss", "lkd", "loss_tot"):
-        assert abs(tg[k] - tc[k]) <= 1e-4 * abs(tc[k]), (k, tg[k], tc[k])
+    assert tc["l_con"] > 0, tc
+    for k, tol in (("loss", 1e-4), ("lkd", 1e-4), ("l_con", 1e-3),
+                   ("loss_tot", 1e-4)):
+        assert abs(tg[k] - tc[k]) <= tol * abs(tc[k]), (k, tg[k], tc[k])
     g_cpu, g_card = torch.cat([wc, bc]), torch.cat([wg, bg])
     rel = float((g_card - g_cpu).abs().max() / g_cpu.abs().max())
     log(f"[train] f32 ResNet-50 step at 64x64, card (kernels) vs CPU "
         f"(plain): loss_tot {tg['loss_tot']:.6f} / {tc['loss_tot']:.6f}, "
-        f"new-classifier gradient max rel err {rel:.3g}")
+        f"l_con {tg['l_con']:.6f} / {tc['l_con']:.6f}, new-classifier gradient max rel err {rel:.3g}")
     assert rel <= 1e-3, rel
 
 
@@ -920,9 +1182,87 @@ def time_fused_loss(dev, where) -> dict:
     return out
 
 
+def tiled_contrastive_work(P, M, D, C) -> dict:
+    """name -> (bytes, operations) that each tiled contrastive kernel must
+    move and do at least. Operations: the matrix products alone, 2 per
+    multiply-add (pass 1 one P x M x D similarity product; pass 2 that plus
+    the P x M x C joint-probability product; the backward both plus the
+    second P x M x D product with the contrast features); the masked
+    exp / log epilogue (a few operations per pair beside 2 D) is left out.
+    Bytes: float32 features and probabilities (in either mode) and the
+    6-byte slot records read once, the per-anchor rows read and written
+    once, dA written once."""
+    feats, probs = (P + M) * D * 4, (P + M) * C * 4
+    slots, row = (P + M) * 6, P * 4
+    sim, jm = 2 * P * M * D, 2 * P * M * C
+    return {"contrastive_pass1": (feats + slots + 2 * row, sim),
+            "contrastive_pass2": (feats + probs + slots + 3 * row, sim + jm),
+            "contrastive_bwd": (feats + probs + slots + 3 * row + P * D * 4,
+                                2 * sim + jm)}
+
+
+def time_contrastive(dev, where) -> dict:
+    """B3, B4, B5 at the train shape in both modes beside their plain
+    versions and their bounds: operations at the f32 rate outside the
+    tensor cores in f32 mode, at the dense bf16 tensor rate in bf16 mode
+    (the least time the card could take for bf16 products). No single
+    PyTorch call computes any of the three: library_ms is None."""
+    batch = contrastive_batch(dev, 80, **CON_MAIN)
+    P, D = batch.anchor_feat.shape
+    M, C = batch.contrast_feat.shape[0], batch.anchor_prob.shape[1]
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        prep = TT.prepare(batch, dtype)
+        neg, num = TT.launch_pass1(prep, TAU)
+        _, g = TT.launch_pass2(prep, neg, TAU)
+        coef = TT.backward_coef(num, torch.ones((), device=dev))
+        ms = {
+            "contrastive_pass1": (
+                cuda_ms(lambda: TT.launch_pass1(prep, TAU), 10, 2),
+                cuda_ms(lambda: TT.pass1_plain(batch, TAU, dtype), 3, 1)),
+            "contrastive_pass2": (
+                cuda_ms(lambda: TT.launch_pass2(prep, neg, TAU), 10, 2),
+                cuda_ms(lambda: TT.pass2_plain(batch, neg, TAU, dtype), 3,
+                        1)),
+            "contrastive_bwd": (
+                cuda_ms(lambda: TT.launch_bwd(prep, neg, g, coef, TAU), 10,
+                        2),
+                cuda_ms(lambda: TT.bwd_plain(batch, neg, g, coef, TAU,
+                                             dtype), 3, 1))}
+        rate = BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S
+        work = tiled_contrastive_work(P, M, D, C)
+        for name, (kernel_ms, plain_ms) in ms.items():
+            n_bytes, n_ops = work[name]
+            bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = n_ops / rate * 1e3
+            r = {"ms": kernel_ms, "plain_ms": plain_ms,
+                 "bound_ms": max(bytes_ms, ops_ms),
+                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                 "library_ms": None, "bytes": n_bytes, "operations": n_ops,
+                 "tflop_per_s": n_ops / kernel_ms / 1e9}
+            out.setdefault(name, {})["bf16" if bf16 else "f32"] = r
+            log(f"[time] {name} P={P} M={M} D={D} C={C} "
+                f"{'bf16' if bf16 else 'f32'} mode on {where}: kernel "
+                f"{kernel_ms:.4f} ms ({r['tflop_per_s']:.2f} TFLOP/s), plain "
+                f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
+                f"({r['bound_by']}: {n_bytes} B, {n_ops} flop), library: "
+                f"none")
+    return out
+
+
 def time_training(dev, tr, where, profile_dir) -> dict:
+    """Train-step throughput under UCD and, with the same model and batch,
+    under MiB (the UCD preset minus the contrastive term: their difference
+    is what the term costs), in windows ordered UCD, MiB, MiB, UCD, twice;
+    both steps' device time between the marks of their parts; UCD at batch
+    16."""
     cfg, model, model_old = tr["cfg"], tr["model"], tr["model_old"]
-    train_step = make_train_step(cfg, model, model_old, total_iters=100)
+    cfg_mib = C.make_config(**dict(TRAIN, method="MiB"))
+    assert not cfg_mib.contrastive and cfg_mib.loss_kd == cfg.loss_kd
+    steps = {"ucd": make_train_step(cfg, model, model_old, total_iters=100),
+             "mib": make_train_step(cfg_mib, model, model_old,
+                                    total_iters=100)}
     state, old_vars, batch = tr["state"], tr["old_vars"], tr["batch"]
     r = {"peak_mem_gb": tr["peak_gb"]}
 
@@ -936,10 +1276,20 @@ def time_training(dev, tr, where, profile_dir) -> dict:
         torch.cuda.synchronize()
         return len(b["label"]) * n / (time.perf_counter() - t0)
 
-    r["img_per_s"] = img_per_s(train_step, state, old_vars, batch)
+    # the host clock of a shared host spreads by tens of percent between
+    # windows: four windows of 10 steps each, interleaved
+    runs = {"ucd": [], "mib": []}
+    for name in ("ucd", "mib", "mib", "ucd") * 2:
+        runs[name].append(img_per_s(steps[name], state, old_vars, batch))
+    r["img_per_s"] = sum(runs["ucd"]) / len(runs["ucd"])
+    r["img_per_s_runs"] = runs["ucd"]
     r["step_ms"] = BATCH / r["img_per_s"] * 1e3
+    r["img_per_s_mib"] = sum(runs["mib"]) / len(runs["mib"])
+    r["img_per_s_mib_runs"] = runs["mib"]
+    r["step_ms_mib"] = BATCH / r["img_per_s_mib"] * 1e3
+    r["contrastive_term_ms"] = r["step_ms"] - r["step_ms_mib"]
 
-    # the same step with a CUDA event recorded between its parts
+    # the same steps with a CUDA event recorded between their parts
     events = []
 
     def mark(name):
@@ -947,36 +1297,44 @@ def time_training(dev, tr, where, profile_dir) -> dict:
         e.record()
         events.append((name, e))
 
-    marked_step = make_train_step(cfg, model, model_old, total_iters=100,
-                                  mark=mark)
-    sums = {}
     n = 5
-    for _ in range(n):
-        events.clear()
-        marked_step(state, batch, old_vars)
-        torch.cuda.synchronize()
-        for (_, a), (k, b) in zip(events, events[1:]):
-            sums[k] = sums.get(k, 0.0) + a.elapsed_time(b) / n
-    r["device_ms"] = sums
-    log(f"[time] train step, MiB VOC 15-5s step 1, ResNet-101, batch "
+    for key, c in (("device_ms", cfg), ("device_ms_mib", cfg_mib)):
+        marked_step = make_train_step(c, model, model_old, total_iters=100,
+                                      mark=mark)
+        sums = {}
+        for _ in range(n):
+            events.clear()
+            marked_step(state, batch, old_vars)
+            torch.cuda.synchronize()
+            for (_, a), (k, b) in zip(events, events[1:]):
+                sums[k] = sums.get(k, 0.0) + a.elapsed_time(b) / n
+        r[key] = sums
+    log(f"[time] train step, UCD VOC 15-5s step 1, ResNet-101, batch "
         f"{BATCH}, {SIZE}x{SIZE}, bf16 with f32 masters on {where}: "
         f"{r['img_per_s']:.2f} img/s ({r['step_ms']:.2f} ms per step, host "
-        f"clock, synchronized per 10 steps); device ms between events: "
-        + ", ".join(f"{k} {v:.2f}" for k, v in sums.items())
+        f"clock, synchronized per 10 steps, mean of windows "
+        f"{', '.join(f'{v:.2f}' for v in runs['ucd'])}); under MiB (no "
+        f"contrastive term) {r['img_per_s_mib']:.2f} img/s "
+        f"({r['step_ms_mib']:.2f} ms, windows "
+        f"{', '.join(f'{v:.2f}' for v in runs['mib'])}); device ms between "
+        f"events, UCD: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in r["device_ms"].items())
+        + "; MiB: "
+        + ", ".join(f"{k} {v:.2f}" for k, v in r["device_ms_mib"].items())
         + f"; peak memory {r['peak_mem_gb']:.2f} GB")
     if profile_dir:
-        profile(lambda: train_step(state, batch, old_vars), profile_dir,
+        profile(lambda: steps["ucd"](state, batch, old_vars), profile_dir,
                 "train_step", n=3)
 
     # batch 16, the JAX package's headline batch; no assertion on it
-    del train_step
+    del steps
     big = train_batches(1, 16, SIZE, cfg.tot_classes, seed=90)[0]
     cfg16 = dataclasses.replace(cfg, batch_size=16)
     torch.cuda.reset_peak_memory_stats()
     step16 = make_train_step(cfg16, model, model_old, total_iters=100)
     r["img_per_s_batch16"] = img_per_s(step16, state, old_vars, big, n=5)
     r["peak_mem_gb_batch16"] = torch.cuda.max_memory_allocated() / 1e9
-    log(f"[time] train step at batch 16 on {where}: "
+    log(f"[time] UCD train step at batch 16 on {where}: "
         f"{r['img_per_s_batch16']:.2f} img/s, peak memory "
         f"{r['peak_mem_gb_batch16']:.2f} GB")
     return r
@@ -1064,16 +1422,18 @@ def main(argv=None) -> int:
     where = card()
     log(f"[build] {build.kernel_sources()} built for {where}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
-    for name in (FE.KERNEL, FL.KERNEL):
+    for name in (FE.KERNEL, FL.KERNEL, TT.KERNEL):
         ptxas = build.library_path(name).with_suffix(".log").read_text()
         # registers, shared memory, stack and spills of each kernel
         log("\n".join(ln for ln in ptxas.splitlines()
-                      if "registers" in ln or "spill" in ln))
+                      if "registers" in ln or "spill" in ln
+                      or "Compiling entry function" in ln))
     lap("1 build")
 
     # phase 2: every kernel against its plain version
     err = phase_kernels(dev)
     loss_err = phase_loss_kernels(dev)
+    con_err = phase_contrastive_kernels(dev)
     lap("2 kernels vs plain versions")
     if args.only == "kernels":
         return 0
@@ -1099,6 +1459,7 @@ def main(argv=None) -> int:
     # phase 4: timings
     timing = time_fused_argmax(dev, where)
     loss_timing = time_fused_loss(dev, where)
+    con_timing = time_contrastive(dev, where)
     serving = time_serving(dev, served, where, args.profile)
     log(json.dumps({"serving": {"card": where, **serving}}))
     training = time_training(dev, trained, where, args.profile)
@@ -1119,9 +1480,9 @@ def main(argv=None) -> int:
         "plain_ms": timing["plain_ms"], "bound_ms": timing["bound_ms"],
         "bound_by": timing["bound_by"],
         "library_ms": timing["library_ms"]}]
-    for i, (name, line, fn, err_key) in enumerate((
+    for name, line, fn, err_key in (
             ("fused_loss_fwd", 181, "_loss_kernel", "loss_err"),
-            ("fused_loss_bwd", 224, "_grad_kernel", "grad_err"))):
+            ("fused_loss_bwd", 224, "_grad_kernel", "grad_err")):
         t = loss_timing[name]
         kernels.append({
             "name": name, "route": "cuda",
@@ -1131,10 +1492,31 @@ def main(argv=None) -> int:
             "launches": counts[name], "launches_serving": 0,
             "launches_train": counts[name],
             "launches_per_train_step":
-                trained["train_counts"][i] / trained["n_steps"],
+                trained["train_counts"][name] / trained["n_steps"],
             "max_abs_err": loss_err[err_key],
             "max_rel_grad_err": loss_err["grad_rel_err"],
             **t, "kernel_ms": t["ms"]})
+    # the full-width train path runs the contrastive kernels in bf16 mode:
+    # ms / plain_ms / bound_ms are that mode's, the f32 mode's follow
+    for name, line, fn, abs_key, rel_key in (
+            ("contrastive_pass1", 77, "_pass1_kernel", "neg_abs", "neg_rel"),
+            ("contrastive_pass2", 98, "_pass2_kernel", "s_abs", "s_rel"),
+            ("contrastive_bwd", 126, "_bwd_kernel", "da_abs", "da_rel")):
+        t = con_timing[name]
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": "ucd_torch/ops/csrc/tiled_contrastive.cu",
+            "replaces": f"ucd_tpu/ops/pallas_contrastive.py:{line}",
+            "replaces_fn": f"ucd_tpu/ops/pallas_contrastive.py::{fn}",
+            "launches": counts[name], "launches_serving": 0,
+            "launches_train": counts[name],
+            "launches_per_train_step":
+                trained["train_counts"][name] / trained["n_steps"],
+            "max_abs_err": con_err[abs_key], "max_rel_err": con_err[rel_key],
+            "mode": "bf16", **t["bf16"], "kernel_ms": t["bf16"]["ms"],
+            **{f"{k}_f32": t["f32"][k] for k in (
+                "ms", "plain_ms", "bound_ms", "bound_by", "operations",
+                "bytes", "tflop_per_s")}})
     log(json.dumps({"kernels": kernels}))
     log(where)
     log(json.dumps({"ok": True, "device": {

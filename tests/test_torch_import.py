@@ -26,6 +26,7 @@ def test_import_pulls_in_no_jax():
         "import ucd_torch.config, ucd_torch.tasks, ucd_torch.ops.losses\n"
         "import ucd_torch.ops.fused_loss, ucd_torch.engine.metrics\n"
         "import ucd_torch.engine.train, ucd_torch.engine.state\n"
+        "import ucd_torch.ops.contrastive, ucd_torch.ops.tiled_contrastive\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
@@ -48,11 +49,17 @@ def test_importing_the_kernel_modules_builds_nothing():
         "existed = build.BUILD_DIR.exists()\n"
         "import ucd_torch.ops.fused_loss as FL\n"
         "import ucd_torch.ops.fused_eval as FE\n"
+        "import ucd_torch.ops.contrastive\n"
+        "import ucd_torch.ops.tiled_contrastive as TT\n"
         "import ucd_torch.engine.train\n"
         "assert build.BUILD_DIR.exists() == existed\n"
         "assert FL.fused_ce_kd.launches_fwd == 0\n"
         "assert FL.fused_ce_kd.launches_bwd == 0\n"
+        "fn = TT.pixel_contrastive_loss_tiled\n"
+        "assert (fn.launches_pass1, fn.launches_pass2, fn.launches_bwd) \\\n"
+        "    == (0, 0, 0)\n"
         "assert 'fused_loss' in build.kernel_sources()\n"
+        "assert TT.KERNEL in build.kernel_sources()\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -120,10 +120,15 @@ def _assert_updates_close(before, before_t, after_t, after_j, frozen_prefix,
     assert np.sqrt(g_err) <= 1e-4 * np.sqrt(g_ref), (step_i, g_err, g_ref)
 
 
-@pytest.mark.parametrize("method,step", [("MiB", 1), ("FT", 0)])
+@pytest.mark.parametrize("method,step", [("MiB", 1), ("FT", 0), ("UCD", 1)])
 def test_two_train_iterations_match_jax_at_float64(method, step, x64):
     cfg_t, cfg_j = _cfgs(step, method, "float64")
-    cfg_j = dataclasses.replace(cfg_j, fused_loss=False)
+    # the JAX side takes its dense losses; the port goes through its
+    # wrappers' CPU path (fused_ce_kd and the tiled contrastive stages)
+    cfg_j = dataclasses.replace(cfg_j, fused_loss=False,
+                                use_pallas_contrastive=False)
+    assert cfg_t.use_pallas_contrastive and cfg_t.contrastive == (
+        method == "UCD")
     incremental = step > 0
     if incremental:
         assert cfg_t.unce and cfg_t.unkd and cfg_t.loss_kd == 10.0 \
@@ -207,6 +212,7 @@ def test_two_train_iterations_match_jax_at_float64(method, step, x64):
     assert m_t["lr"] < cfg_t.lr  # the schedule moved
     if incremental:
         assert float(m_t["lkd"]) > 0
+        assert (float(m_t["l_con"]) > 0) == (method == "UCD")
         for k, v in donor_before.items():
             assert torch.equal(v, old_t[k]), k
 
@@ -379,6 +385,98 @@ def test_build_train_state_step0_to_step1_matches_jax():
                if not k.startswith("body."))
 
 
+def _ucd_step_inputs(seed, **kw):
+    """A UCD step-1 config with the NHWC tensors `compute_train_losses`
+    reads, made from a seed with numpy (f32, 4x4 maps under 64x64 labels)."""
+    cfg, _ = _cfgs(1, "UCD", "float32", **kw)
+    rs = np.random.RandomState(seed)
+    h = SIZE // 16
+
+    def t(*shape, scale=1.0):
+        return torch.from_numpy((rs.randn(*shape) * scale).astype(np.float32))
+
+    feats = {"sem": t(B, h, h, cfg.tot_classes, scale=2.0),
+             "pre_logits": t(B, h, h, 32)}
+    feats_old = {"sem": t(B, h, h, cfg.old_classes, scale=2.0),
+                 "pre_logits": t(B, h, h, 32)}
+    labels = torch.from_numpy(
+        _batches(1, cfg.tot_classes, seed + 1)[0]["label"].astype(np.uint8))
+    return cfg, feats, labels, feats_old
+
+
+def test_ucd_losses_tiled_and_dense_paths_agree_at_float32():
+    """`compute_train_losses` under --method UCD at f32: the tiled stages
+    (`use_pallas_contrastive`, the CPU path of the kernels' wrapper) and the
+    dense loss give the same `l_con` (rtol 1e-5) and the same gradient to
+    the new model's pre_logits (rtol 1e-4 + 1e-6 of its largest entry, the
+    kernel-vs-dense bounds of tests/test_pallas_contrastive.py); `l_con` is
+    part of `loss_tot`, carries `contrastive_weight`, and vanishes without a
+    donor."""
+    from ucd_torch.engine.train import compute_train_losses
+    from ucd_torch.ops.tiled_contrastive import pixel_contrastive_loss_tiled
+
+    cfg, feats, labels, feats_old = _ucd_step_inputs(31)
+    assert cfg.contrastive and cfg.use_pallas_contrastive
+    out = {}
+    for name, c in (("tiled", cfg), ("dense", dataclasses.replace(
+            cfg, use_pallas_contrastive=False))):
+        f = dict(feats, pre_logits=feats["pre_logits"].clone()
+                 .requires_grad_(True))
+        terms = compute_train_losses(c, None, f, labels, None, feats_old)
+        (g,) = torch.autograd.grad(terms["l_con"], f["pre_logits"])
+        out[name] = (terms, g)
+    (tt, gt), (td, gd) = out["tiled"], out["dense"]
+    assert float(td["l_con"].detach()) > 0
+    np.testing.assert_allclose(float(tt["l_con"].detach()),
+                               float(td["l_con"].detach()),
+                               rtol=1e-5)
+    np.testing.assert_allclose(gt.numpy(), gd.numpy(), rtol=1e-4,
+                               atol=1e-6 * float(gd.abs().max()))
+    for t in (tt, td):
+        np.testing.assert_allclose(
+            float(t["loss_tot"].detach()),
+            float((t["loss"] + t["l_con"] + t["lkd"] + t["lde"]).detach()),
+            rtol=1e-6)
+    assert pixel_contrastive_loss_tiled.launches_pass1 == 0  # CPU: no kernel
+    # the weight is applied once
+    double = compute_train_losses(
+        dataclasses.replace(cfg, contrastive_weight=0.02), None, feats,
+        labels, None, feats_old)
+    np.testing.assert_allclose(float(double["l_con"]),
+                               2 * float(tt["l_con"].detach()), rtol=1e-6)
+    # step 0 (no donor): no contrastive term
+    none = compute_train_losses(cfg, None, feats, labels)
+    assert float(none["l_con"]) == 0.0
+
+
+def test_ucd_step_feeds_attended_pre_logits():
+    """The UCD step asks both forwards for the attention maps (the
+    contrastive term reads the attended pre_logits); the MiB step does
+    not."""
+    seen = {}
+    for method in ("UCD", "MiB"):
+        cfg, _ = _cfgs(1, method, "float32")
+        m = make_model(cfg)
+        mo = make_model(cfg, cfg.classes_per_step[:-1])
+        state, old = build_train_state(
+            cfg, m, torch.Generator().manual_seed(0), TOTAL_ITERS,
+            prev_model_state=mo.state_dict(), device="cpu")
+        calls = []
+        for mod in (m, mo):
+            orig = mod.forward
+
+            def spy(x, upsample=True, attention=True, _orig=orig):
+                calls.append(attention)
+                return _orig(x, upsample=upsample, attention=attention)
+            mod.forward = spy
+        step = make_train_step(cfg, m, mo, TOTAL_ITERS, device="cpu")
+        _, metrics = step(state, _batches(1, cfg.tot_classes, seed=3)[0],
+                          old)
+        seen[method] = (calls, float(metrics["l_con"]))
+    assert seen["UCD"][0] == [True, True] and seen["UCD"][1] > 0
+    assert seen["MiB"][0] == [False, False] and seen["MiB"][1] == 0.0
+
+
 def test_unported_branches_raise_by_name():
     """No branch is dropped silently: what is not ported raises and names
     its ROADMAP item; TPU-only fields raise on a non-default value."""
@@ -388,16 +486,12 @@ def test_unported_branches_raise_by_name():
         mo = make_model(cfg, cfg.classes_per_step[:-1])
         return cfg, m, mo
 
-    cfg, m, mo = step_for(method="UCD")
+    cfg, m, mo = step_for(method="LWF-MC")
     state, old = build_train_state(cfg, m, torch.Generator().manual_seed(0),
                                    TOTAL_ITERS,
                                    prev_model_state=mo.state_dict(),
                                    device="cpu")
     batch = _batches(1, cfg.tot_classes, seed=1)[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP A3"):
-        make_train_step(cfg, m, mo, TOTAL_ITERS, device="cpu")(state, batch, old)
-    cfg, m, mo = step_for(method="LWF-MC")
-    state.model = m
     with pytest.raises(NotImplementedError, match="ROADMAP A7"):
         make_train_step(cfg, m, mo, TOTAL_ITERS, device="cpu")(state, batch, old)
     cfg, m, mo = step_for(method="EWC")

@@ -1,6 +1,7 @@
 """Shared helpers of the ucd_torch parity tests (tests/test_torch_*.py):
 seeded flax-keyed weights made with numpy, a jitted JAX forward, layout
-conversion and the argmax near-tie rule."""
+conversion, the argmax near-tie rule and the contrastive term's seeded
+inputs."""
 
 import numpy as np
 
@@ -67,3 +68,35 @@ def assert_argmax_close(got, want, up, gap_tol=1e-4, rate_tol=1e-3):
         assert gap[mism].max() < gap_tol, (
             f"{mism.sum()} real argmax mismatches, max gap {gap[mism].max()}")
         assert mism.mean() < rate_tol, mism.mean()
+
+
+def make_inputs(seed, B=2, H=32, W=32, h=8, w=8, N=16, C=6, max_label=5,
+                ignore=True, label_dtype=np.int32):
+    """Seeded numpy (f_n, labels, l_po, f_o) of the contrastive term: NHWC
+    features and old logits at (h, w), labels at (H, W) with a 255 corner."""
+    rs = np.random.RandomState(seed)
+    f_n = rs.randn(B, h, w, N).astype(np.float32)
+    f_o = rs.randn(B, h, w, N).astype(np.float32)
+    l_po = (rs.randn(B, h, w, C) * 3).astype(np.float32)
+    labels = rs.randint(0, max_label + 1, size=(B, H, W)).astype(label_dtype)
+    if ignore:
+        labels[0, :6, :6] = 255
+    return f_n, labels, l_po, f_o
+
+
+def both_batches(inputs, max_label):
+    """The contrastive batch of `inputs` in both packages: (torch, jax)."""
+    import jax.numpy as jnp
+    import torch
+
+    from ucd_torch.ops import contrastive as TCon
+    from ucd_tpu.ops import contrastive as JCon
+
+    f_n, labels, l_po, f_o = inputs
+    bj = JCon.build_contrastive_batch(jnp.array(f_n), jnp.array(labels),
+                                      jnp.array(l_po), jnp.array(f_o),
+                                      max_label)
+    bt = TCon.build_contrastive_batch(
+        torch.from_numpy(f_n), torch.from_numpy(labels),
+        torch.from_numpy(l_po), torch.from_numpy(f_o), max_label)
+    return bt, bj

@@ -116,6 +116,9 @@ class Config:
     remat: bool = False            # JAX package only
     stem_s2d: bool = False         # JAX package only (stem layout)
     nan_guard: bool = False        # skip updates with non-finite grads
+    # the contrastive term through the streaming CUDA kernels of
+    # ops/tiled_contrastive.py (the name is the JAX package's, kept so that
+    # one set of kwargs builds both Configs); False = the dense loss
     use_pallas_contrastive: bool = True
     device_normalize: bool = True  # ship raw uint8 RGB, normalize on device
     fused_loss: bool = True        # fused upsample+CE/KD kernel

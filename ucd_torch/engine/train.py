@@ -16,9 +16,15 @@ Counterpart of ucd_tpu/engine/train.py. Differences by design:
     needs it (`model.forward_feats`); the fused path reads the low-res
     logits only.
 
-Ported branches: fused CE/KD, dense CE/unCE, dense KD/unKD and `lde`. The
-`icarl`, `bce`, `contrastive` and regularizer branches raise
-NotImplementedError naming their ROADMAP item.
+Ported branches: fused CE/KD, dense CE/unCE, dense KD/unKD, `lde` and the
+UCD pixel-contrastive term (`cfg.contrastive`, what `--method UCD` adds to
+the MiB preset): built from the attended `pre_logits` of both models and
+the donor's logits, through the streaming kernels of
+ops/tiled_contrastive.py under `cfg.use_pallas_contrastive` (in bf16 mode
+under the bf16 policy) or the dense loss of ops/contrastive.py without it.
+The validate step computes no contrastive term, as on the JAX side. The
+`icarl`, `bce` and regularizer branches raise NotImplementedError naming
+their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,6 +42,7 @@ from ..models.segmentation import resize_bilinear, trainable_mask
 from ..ops import fused_eval as FE
 from ..ops import fused_loss as FL
 from ..ops import losses as L
+from ..ops.contrastive import ucd_contrastive_loss
 from .metrics import confusion_matrix_update
 
 MAX_CONSECUTIVE_NONFINITE = 100
@@ -176,14 +183,11 @@ def _lde(feats, feats_old):
 def compute_train_losses(cfg: Config, outputs, feats, labels,
                          outputs_old=None, feats_old=None):
     """All loss terms of the hot loop. `feats` / `feats_old` hold NHWC
-    tensors ("sem", and "body" / "pre_logits" where `loss_de` asks for
-    them); `feats_old` is None without a donor. `outputs` / `outputs_old`
-    are the full-res NHWC logits or None: the dense branches upsample
-    `sem` themselves when they are missing."""
+    tensors ("sem", and the attended "body" / "pre_logits" where `loss_de`
+    or the contrastive term asks for them); `feats_old` is None without a
+    donor. `outputs` / `outputs_old` are the full-res NHWC logits or None:
+    the dense branches upsample `sem` themselves when they are missing."""
     has_old = feats_old is not None
-    if cfg.contrastive and has_old:
-        raise NotImplementedError(
-            "the contrastive term is not ported yet (ROADMAP A3)")
     if cfg.icarl and has_old:
         raise NotImplementedError(
             "the icarl terms are not ported yet (ROADMAP A7)")
@@ -212,7 +216,23 @@ def compute_train_losses(cfg: Config, outputs, feats, labels,
                 outputs_old = _dense_outputs(cfg, feats_old["sem"], hw)
             lkd = cfg.loss_kd * _dense_kd(cfg, outputs, outputs_old)
     terms["loss"] = loss
-    terms["l_con"] = zero
+
+    # UCD pixel-contrastive distillation
+    l_con = zero
+    if cfg.contrastive and has_old:
+        l_con = ucd_contrastive_loss(
+            feats["pre_logits"], labels, feats_old["sem"],
+            feats_old["pre_logits"], max_label=cfg.num_classes - 1,
+            temperature=cfg.temperature,
+            capacity=cfg.contrastive_capacity,
+            use_pallas=cfg.use_pallas_contrastive,
+            bug_compatible=cfg.contrastive_bug_compatible,
+            # bf16 training: the kernels multiply bf16-rounded features;
+            # f32 (and the f64 test dtype) keep the exact path
+            kernel_dtype=(torch.bfloat16 if cfg.dtype == "bfloat16"
+                          else torch.float32),
+        ) * cfg.contrastive_weight
+    terms["l_con"] = l_con
     terms["l_icarl"] = zero
 
     lde = zero
@@ -220,7 +240,7 @@ def compute_train_losses(cfg: Config, outputs, feats, labels,
         lde = cfg.loss_de * _lde(feats, feats_old)
     terms["lde"] = lde
     terms["lkd"] = lkd
-    terms["loss_tot"] = loss + lde + lkd
+    terms["loss_tot"] = loss + l_con + lde + lkd
     return terms
 
 
@@ -292,7 +312,8 @@ def make_train_step(cfg: Config, model, model_old, total_iters: int,
         step_idx = 0  # single fixed head keeps training (domain-incremental)
     tx = make_optimizer(cfg, total_iters)
     has_old = model_old is not None
-    need_att = cfg.loss_de > 0 and has_old
+    # the contrastive term reads the attended pre_logits of both models
+    need_att = (cfg.loss_de > 0 or cfg.contrastive) and has_old
 
     mask = trainable_mask(
         [n for n, _ in model.named_parameters()], step_idx,
