@@ -15,10 +15,12 @@ Phases (any failure exits non-zero, and no result line is printed):
      identity resolution, alpha 2, all-ignore labels, uint8 vs int32
      labels, bit-reproducible backward) and the three tiled contrastive
      kernels (pass 1, pass 2, backward and the composed loss at the train
-     shape in f32 and bf16 mode, ADE's 151 probabilities, non-aligned
-     P = 50 / C = 7, a feature width beyond one backward slice, a compacted
-     batch, no GT-new pixel, no valid anchor, bit-reproducible backward,
-     and the tiled loss against the dense one);
+     shape, ADE's 151 probabilities, non-aligned P = 50 / C = 7, a feature
+     width beyond one backward slice, a compacted batch and no GT-new pixel,
+     each in f32 mode (FMA kernels) and in bf16 mode (pass 2 and the
+     backward on the tensor cores, over zero-padded 2-byte operands); no
+     valid anchor, bit-reproducible backward, and the tiled loss against
+     the dense one);
   3. drive the two main paths at full width (ResNet-101 DeepLab-v3, os 16,
      head 256, pooling 32; seeded random weights with BN statistics
      calibrated on one seeded batch), each with the kernels' launch counts
@@ -404,10 +406,18 @@ def check_contrastive(batch, dtype) -> dict:
     coef = TT.backward_coef(num_p, torch.ones((), device=neg_p.device))
     da_p = TT.bwd_plain(batch, neg_p, g_p, coef, TAU, dtype)
     prep = TT.prepare(batch, dtype)
+    # the mode alone picks the kernels of pass 2 and the backward: f32 FMAs
+    # in f32 mode, the tensor-core kernels on 2-byte operands in bf16 mode
+    assert prep.variant == TT.kernel_variant(dtype) == (
+        "mma" if dtype == torch.bfloat16 else "fma")
+    assert (prep.mma is not None) == (prep.variant == "mma")
+    if prep.mma is not None:
+        assert {t.dtype for t in prep.mma[:4]} == {torch.bfloat16}
     neg, num = TT.launch_pass1(prep, TAU)
     s, g = TT.launch_pass2(prep, neg_p, TAU)
     da = TT.launch_bwd(prep, neg_p, g_p, coef, TAU)
     torch.cuda.synchronize()
+    assert da.shape == batch.anchor_feat.shape and s.shape == neg_p.shape
     assert (fn.launches_pass1, fn.launches_pass2, fn.launches_bwd) == tuple(
         b + 1 for b in before)
     for t in (neg, num, s, g, da):
@@ -473,8 +483,11 @@ def phase_contrastive_kernels(dev) -> dict:
         run(f"ADE P={ade.anchor_feat.shape[0]} C=151", ade, dtype)
     small = dict(B=2, h=5, w=5, D=8, C=7, H=20, W=20, max_label=6, n_label=7,
                  n_old=4)
-    run("non-aligned P=50 M=100 D=8 C=7", contrastive_batch(dev, 62, **small),
-        torch.float32)
+    # (in bf16 mode the wrapper zero-pads these operands to the tensor-core
+    # tiles: P to 128, M to 64, D and C to 16, padded slots invalid)
+    for dtype in (torch.float32, torch.bfloat16):
+        run("non-aligned P=50 M=100 D=8 C=7",
+            contrastive_batch(dev, 62, **small), dtype)
     wide = dict(B=2, h=10, w=10, D=300, C=16, H=160, W=160, max_label=20,
                 n_label=21)
     run("wide P=200 D=300 (two backward slices)",
@@ -484,11 +497,13 @@ def phase_contrastive_kernels(dev) -> dict:
     mid = dict(CON_MAIN, B=2, h=8, w=8, H=128, W=128)
     compact = contrastive_batch(dev, 64, capacity=100, **mid)
     assert compact.anchor_feat.shape[0] == 100
-    run("compacted to capacity 100", compact, torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        run("compacted to capacity 100", compact, dtype)
     no_new = contrastive_batch(
         dev, 65, labels=torch.zeros(2, 128, 128, dtype=torch.uint8), **mid)
     assert not no_new.anchor_is_new.any() and no_new.anchor_valid.any()
-    run("no GT-new pixel", no_new, torch.float32)
+    for dtype in (torch.float32, torch.bfloat16):
+        run("no GT-new pixel", no_new, dtype)
     # no valid anchor at all: loss exactly 0, gradient exactly 0
     empty = contrastive_batch(
         dev, 66, labels=torch.zeros(2, 128, 128, dtype=torch.uint8),
@@ -932,6 +947,7 @@ def phase_train(dev) -> dict:
     FE.fused_argmax.launches = 0
     con = TT.pixel_contrastive_loss_tiled
     con.launches_pass1 = con.launches_pass2 = con.launches_bwd = 0
+    con.launches_pass2_mma = con.launches_bwd_mma = 0
     history = []
     bn_records, hooks = watch_batch_stats(model)  # over the first step
     for i in range(n_steps):
@@ -971,6 +987,11 @@ def phase_train(dev) -> dict:
             f"{k} {m[k]:.5f}" for k in ("loss", "lkd", "l_con", "loss_tot",
                                         "lr")))
     assert set(train_counts.values()) == {n_steps}, train_counts
+    # bf16 training runs pass 2 and the backward on the tensor cores: every
+    # one of their launches was the "mma" variant
+    assert TT.kernel_variant(torch.bfloat16) == "mma"
+    assert (con.launches_pass2_mma, con.launches_bwd_mma) == (
+        n_steps, n_steps), (con.launches_pass2_mma, con.launches_bwd_mma)
     log(f"[train] after the first step, the {len(bn_records)} BNs' running "
         f"statistics equal old + 0.1 * (batch mean / biased batch variance "
         f"recomputed in plain f32 - old): worst error {bn_err:.3g} of a "
@@ -1182,23 +1203,26 @@ def time_fused_loss(dev, where) -> dict:
     return out
 
 
-def tiled_contrastive_work(P, M, D, C) -> dict:
+def tiled_contrastive_work(P, M, D, C, dtype=torch.float32) -> dict:
     """name -> (bytes, operations) that each tiled contrastive kernel must
     move and do at least. Operations: the matrix products alone, 2 per
     multiply-add (pass 1 one P x M x D similarity product; pass 2 that plus
     the P x M x C joint-probability product; the backward both plus the
     second P x M x D product with the contrast features); the masked
     exp / log epilogue (a few operations per pair beside 2 D) is left out.
-    Bytes: float32 features and probabilities (in either mode) and the
-    6-byte slot records read once, the per-anchor rows read and written
-    once, dA written once."""
-    feats, probs = (P + M) * D * 4, (P + M) * C * 4
+    Bytes: features and probabilities (4 bytes a value; 2 in bf16 mode for
+    pass 2 and the backward, whose kernels read bfloat16, while pass 1 goes
+    on reading float32 in either mode) and the 6-byte slot records read
+    once, the per-anchor rows read and written once, dA written once."""
+    wide = 2 if dtype == torch.bfloat16 else 4
+    feats, probs = (P + M) * D, (P + M) * C
     slots, row = (P + M) * 6, P * 4
     sim, jm = 2 * P * M * D, 2 * P * M * C
-    return {"contrastive_pass1": (feats + slots + 2 * row, sim),
-            "contrastive_pass2": (feats + probs + slots + 3 * row, sim + jm),
-            "contrastive_bwd": (feats + probs + slots + 3 * row + P * D * 4,
-                                2 * sim + jm)}
+    return {"contrastive_pass1": (feats * 4 + slots + 2 * row, sim),
+            "contrastive_pass2": ((feats + probs) * wide + slots + 3 * row,
+                                  sim + jm),
+            "contrastive_bwd": ((feats + probs) * wide + slots + 3 * row
+                                + P * D * 4, 2 * sim + jm)}
 
 
 def time_contrastive(dev, where) -> dict:
@@ -1231,7 +1255,23 @@ def time_contrastive(dev, where) -> dict:
                 cuda_ms(lambda: TT.bwd_plain(batch, neg, g, coef, TAU,
                                              dtype), 3, 1))}
         rate = BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S
-        work = tiled_contrastive_work(P, M, D, C)
+        work = tiled_contrastive_work(P, M, D, C, dtype)
+        # pass 1 has the FMA kernel in either mode
+        variants = {"contrastive_pass1": "fma",
+                    "contrastive_pass2": prep.variant,
+                    "contrastive_bwd": prep.variant}
+        launch = {}
+        if prep.variant == "mma":
+            (Pp, Dp), Cp = prep.mma.af.shape, prep.mma.ap.shape[1]
+            n_tiles = prep.mma.cf.shape[0] // TT.MMA_TILE_C
+            n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+            for name, kernel in (("contrastive_pass2", "pass2"),
+                                 ("contrastive_bwd", "bwd")):
+                tile_a = TT.anchor_tile(kernel, Dp, Cp)
+                launch[name] = {
+                    "anchors_per_block": tile_a,
+                    "ring_stages": TT.ring_stages(Dp, Cp, tile_a),
+                    "parts_of_m": TT.m_parts(Pp // tile_a, n_tiles, n_sm)}
         for name, (kernel_ms, plain_ms) in ms.items():
             n_bytes, n_ops = work[name]
             bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
@@ -1240,10 +1280,13 @@ def time_contrastive(dev, where) -> dict:
                  "bound_ms": max(bytes_ms, ops_ms),
                  "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                  "library_ms": None, "bytes": n_bytes, "operations": n_ops,
-                 "tflop_per_s": n_ops / kernel_ms / 1e9}
+                 "tflop_per_s": n_ops / kernel_ms / 1e9,
+                 "variant": variants[name], **launch.get(name, {})}
             out.setdefault(name, {})["bf16" if bf16 else "f32"] = r
+            how = variants[name] + " variant" + (
+                " " + json.dumps(launch[name]) if name in launch else "")
             log(f"[time] {name} P={P} M={M} D={D} C={C} "
-                f"{'bf16' if bf16 else 'f32'} mode on {where}: kernel "
+                f"{'bf16' if bf16 else 'f32'} mode ({how}) on {where}: kernel "
                 f"{kernel_ms:.4f} ms ({r['tflop_per_s']:.2f} TFLOP/s), plain "
                 f"{plain_ms:.4f} ms, bound {r['bound_ms']:.4f} ms "
                 f"({r['bound_by']}: {n_bytes} B, {n_ops} flop), library: "
@@ -1386,9 +1429,9 @@ def profile(fn, out_dir, name, n=5):
         torch.cuda.synchronize()
     avg = prof.key_averages()
     try:
-        table = avg.table(sort_by="device_time_total", row_limit=40)
+        table = avg.table(sort_by="device_time_total", row_limit=60)
     except (KeyError, AttributeError, RuntimeError):
-        table = avg.table(sort_by="cuda_time_total", row_limit=40)
+        table = avg.table(sort_by="cuda_time_total", row_limit=60)
     path = os.path.join(out_dir, f"{name}_profile.txt")
     with open(path, "w") as f:
         f.write(table)
@@ -1428,6 +1471,9 @@ def main(argv=None) -> int:
         log("\n".join(ln for ln in ptxas.splitlines()
                       if "registers" in ln or "spill" in ln
                       or "Compiling entry function" in ln))
+        spills = [ln for ln in ptxas.splitlines() if "spill" in ln
+                  and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+        assert not spills, f"{name}: register spills: {spills}"
     lap("1 build")
 
     # phase 2: every kernel against its plain version
@@ -1516,7 +1562,7 @@ def main(argv=None) -> int:
             "mode": "bf16", **t["bf16"], "kernel_ms": t["bf16"]["ms"],
             **{f"{k}_f32": t["f32"][k] for k in (
                 "ms", "plain_ms", "bound_ms", "bound_by", "operations",
-                "bytes", "tflop_per_s")}})
+                "bytes", "tflop_per_s", "variant")}})
     log(json.dumps({"kernels": kernels}))
     log(where)
     log(json.dumps({"ok": True, "device": {

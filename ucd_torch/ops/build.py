@@ -4,7 +4,8 @@ Each `ops/csrc/<name>.cu` is compiled by `nvcc` for Hopper (`sm_90a`) into a
 shared library with a plain C interface and loaded with ctypes. The build
 happens at first use, from the sources in the package, into
 `ucd_torch/_build/` (listed in .gitignore). The library's file name carries
-a hash of its source, so an edited kernel is never served by a stale build;
+a hash of its source and of every header (`csrc/*.cuh`) beside it, so an
+edited kernel or header is never served by a stale build;
 `-Xptxas -v` output (registers, shared memory, spills) is kept beside it in
 a `.log` file.
 
@@ -41,9 +42,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    """Where the library of `csrc/<name>.cu` is built: its name carries a
+    hash of the source and of all headers in csrc/ (any source may include
+    any of them)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode())
+        h.update(header.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Sequence[str]) -> None:

@@ -25,30 +25,33 @@
 // similarity product is 68.7 GFLOP against 25 MB of inputs; pass 1 does one,
 // pass 2 one plus the JM product, the backward two plus JM.
 //
-// Design. The TPU grid's second axis is a sequential reduction carried in
-// the output block; here one block of 256 threads owns a tile of 64 anchors
-// and walks all contrast tiles (64 slots each) itself, so neg / num / S / G
-// and the dA tile stay in registers for the whole loop and no cross-block
-// reduction or atomic exists: every sum has a fixed order and two runs give
-// the same bits. Each 64 x 64 pair tile is a shared-memory product: K-chunks
-// of 32 of both operands are staged transposed ([k][slot], padded) so that a
-// thread reads its 4 anchors and 4 contrast slots as two float4 and does 16
-// FMAs per k; the next chunk's global loads go into registers before the
-// current chunk is multiplied. The masked exp / log epilogue runs on the
-// thread's 4 x 4 sub-tile straight from the accumulators; the ragged edges
-// (P, M, D, C not multiples of the tiles) are zero-filled on load and masked
-// by the validity bits, so no padded copy of any input is made. The
-// backward stages the pair tile dL/dadc through shared memory ([slot][anchor])
-// and contracts it with the contrast features again, a 64 x 256 slice of dA
-// per block (64 accumulators per thread; blockIdx.y walks wider D).
+// Two variants, chosen by the wrapper from the compute mode alone:
 //
-// Two modes, one set of kernels: every product is true f32 FMAs (never
-// TF32). In bf16 mode the wrapper rounds features and probabilities to bf16
-// once and hands them over widened to f32 again (a bf16 x bf16 product is
-// exact in f32, so FMAs on the widened values equal a bf16 product with f32
-// accumulation; a first version that read 2-byte values ran slower), and
-// the backward rounds dL/dadc to bf16 before its second product
-// (ROUND_DADC).
+//  * f32 mode, and pass 1 in both modes: the f32-FMA kernels of this file.
+//    Every product is true f32 FMAs (never TF32). One block of 256 threads
+//    owns a tile of 64 anchors and walks all contrast tiles (64 slots each)
+//    itself, so neg / num / S / G and the dA tile stay in registers for the
+//    whole loop and no cross-block reduction or atomic exists: every sum has
+//    a fixed order and two runs give the same bits. Each 64 x 64 pair tile
+//    is a shared-memory product: K-chunks of 32 of both operands are staged
+//    transposed ([k][slot], padded) so that a thread reads its 4 anchors and
+//    4 contrast slots as two float4 and does 16 FMAs per k; the next chunk's
+//    global loads go into registers before the current chunk is multiplied.
+//    The masked exp / log epilogue runs on the thread's 4 x 4 sub-tile
+//    straight from the accumulators; the ragged edges (P, M, D, C not
+//    multiples of the tiles) are zero-filled on load and masked by the
+//    validity bits, so no padded copy of any input is made. The backward
+//    stages the pair tile dL/dadc through shared memory ([slot][anchor]) and
+//    contracts it with the contrast features again, a 64 x 256 slice of dA
+//    per block (64 accumulators per thread; blockIdx.y walks wider D). Pass 1
+//    in bf16 mode is these FMAs on bf16 values the wrapper widened to f32
+//    again (a bf16 x bf16 product is exact in f32).
+//
+//  * bf16 mode, pass 2 and the backward: the tensor-core kernels of
+//    tiled_contrastive_mma.cuh (`mma.sync` on 2-byte operands, the anchor
+//    tile resident in shared memory, a `cp.async` ring of contrast tiles,
+//    dL/dadc handed from the first product's accumulators to the second
+//    product's A fragments in registers); its header has the design.
 //
 // C interface (ctypes): each entry returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for an argument the kernels do not take.
@@ -57,6 +60,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "tiled_contrastive_mma.cuh"
 
 namespace {
 
@@ -72,13 +77,6 @@ constexpr int LD = TA / (THREADS / DK);  // staged loads per thread and operand
 static_assert(TA == TC, "one loop stages both operands");
 static_assert(CK * DB <= 2 * DK * PAD, "the Cf chunk reuses the A/B buffers");
 static_assert(DB == THREADS, "one column of the Cf chunk per thread");
-
-// label / validity / is-new of the slots, as the wrapper holds them
-struct Slots {
-  const int32_t* label;
-  const uint8_t* valid;   // bool storage
-  const uint8_t* is_new;  // bool storage
-};
 
 // labels and flag bits (1 = valid, 2 = GT-new) of 4 consecutive slots;
 // slots at or beyond n are invalid
@@ -279,7 +277,6 @@ __global__ void __launch_bounds__(THREADS)
   }
 }
 
-template <bool ROUND_DADC>
 __global__ void __launch_bounds__(THREADS)
     contrastive_bwd_kernel(const float* __restrict__ af,
                            const float* __restrict__ ap,
@@ -341,7 +338,6 @@ __global__ void __launch_bounds__(THREADS)
             dadc = coef_r[i] * (w * (1.0f - e / (e + neg_r[i])));
           }
         }
-        if (ROUND_DADC) dadc = __bfloat162float(__float2bfloat16(dadc));
         col[i] = dadc;
       }
       *reinterpret_cast<float4*>(&Ds[tx * 4 + j][ty * 4]) =
@@ -427,8 +423,9 @@ Args make_args(const void* af, const void* ap, const void* cf, const void* cp,
 
 }  // namespace
 
-// Features af (P, D), cf (M, D) and probabilities ap (P, C), cp (M, C) are
-// float32, row-major (in bf16 mode: bf16 values widened to float32); la / lc
+// The f32-FMA kernels. Features af (P, D), cf (M, D) and probabilities ap
+// (P, C), cp (M, C) are float32, row-major (pass 1 in bf16 mode: bf16 values
+// widened to float32); la / lc
 // int32 labels, av / cv / an / cn one byte per slot (validity, GT-new); neg,
 // num, s, g, coef (P,) and da (P, D) float32.
 
@@ -459,28 +456,128 @@ extern "C" int ucd_contrastive_pass2(
   return (int)cudaGetLastError();
 }
 
-// round_dadc: 1 in bf16 mode (dL/dadc rounded to bf16 before the second
-// product), 0 in f32 mode
 extern "C" int ucd_contrastive_bwd(
     const void* af, const void* ap, const void* cf, const void* cp,
     const void* la, const void* av, const void* an, const void* lc,
     const void* cv, const void* cn, const void* neg, const void* g,
     const void* coef, void* da, int P, int M, int D, int C, float tau,
-    int round_dadc, void* stream) {
+    void* stream) {
   const Args a =
       make_args(af, ap, cf, cp, la, av, an, lc, cv, cn, P, M, D, C, tau, stream);
   const dim3 grid((a.P + TA - 1) / TA, (a.D + DB - 1) / DB);
-  if (!args_ok(a) || grid.y > 65535 || (round_dadc != 0 && round_dadc != 1))
-    return (int)cudaErrorInvalidValue;
-  if (round_dadc)
-    contrastive_bwd_kernel<true><<<grid, THREADS, 0, a.stream>>>(
-        a.af, a.ap, a.cf, a.cp, a.a_slots, a.c_slots, (const float*)neg,
-        (const float*)g, (const float*)coef, (float*)da, a.P, a.M, a.D, a.C,
-        a.tau);
-  else
-    contrastive_bwd_kernel<false><<<grid, THREADS, 0, a.stream>>>(
-        a.af, a.ap, a.cf, a.cp, a.a_slots, a.c_slots, (const float*)neg,
-        (const float*)g, (const float*)coef, (float*)da, a.P, a.M, a.D, a.C,
-        a.tau);
+  if (!args_ok(a) || grid.y > 65535) return (int)cudaErrorInvalidValue;
+  contrastive_bwd_kernel<<<grid, THREADS, 0, a.stream>>>(
+      a.af, a.ap, a.cf, a.cp, a.a_slots, a.c_slots, (const float*)neg,
+      (const float*)g, (const float*)coef, (float*)da, a.P, a.M, a.D, a.C,
+      a.tau);
   return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// bf16 mode: the tensor-core kernels of tiled_contrastive_mma.cuh
+// ---------------------------------------------------------------------------
+
+namespace {
+
+bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
+
+// Operands of the tensor-core kernels, or stages = 0 for arguments they do
+// not take. af / ap / cf / cp are bf16, zero-padded by the wrapper: P to a
+// multiple of `tile_a`, M of 64, D and C of 16; every slot array padded
+// alike (padded slots invalid) and 16-byte aligned for cp.async.
+mma::Operands mma_operands(const void* af, const void* ap, const void* cf,
+                           const void* cp, const void* la, const void* av,
+                           const void* an, const void* lc, const void* cv,
+                           const void* cn, int P, int M, int D, int C,
+                           float tau, int parts, int stages, int tile_a) {
+  mma::Operands t;
+  t.af = (const __nv_bfloat16*)af;
+  t.ap = (const __nv_bfloat16*)ap;
+  t.cf = (const __nv_bfloat16*)cf;
+  t.cp = (const __nv_bfloat16*)cp;
+  t.a_slots = {(const int32_t*)la, (const uint8_t*)av, (const uint8_t*)an};
+  t.c_slots = {(const int32_t*)lc, (const uint8_t*)cv, (const uint8_t*)cn};
+  t.P = P;
+  t.M = M;
+  t.D = D;
+  t.C = C;
+  t.tau = tau;
+  t.stages = 0;
+  t.tiles_per_part = 0;
+  if (P < 1 || M < 1 || D < 1 || C < 1 || !(tau > 0.0f) || parts < 1 ||
+      parts > 65535 || stages < 2 || stages > 4 || P % tile_a || M % mma::TC ||
+      D % 16 || C % 16)
+    return t;
+  if (!(aligned16(af) && aligned16(ap) && aligned16(cf) && aligned16(cp) &&
+        aligned16(lc) && aligned16(cv) && aligned16(cn)))
+    return t;
+  const int n_tiles = M / mma::TC;
+  const int per_part = (n_tiles + parts - 1) / parts;
+  if ((parts - 1) * per_part >= n_tiles) return t;  // a part without a tile
+  const mma::Geometry geo = mma::geometry(D, C, tile_a);
+  if (geo.anchors + stages * geo.stage > mma::SMEM_LIMIT) return t;
+  t.tiles_per_part = per_part;
+  t.stages = stages;
+  return t;
+}
+
+template <typename Kernel, typename... Args>
+int launch_mma(Kernel kernel, dim3 grid, int threads, const mma::Operands& t,
+               int tile_a, void* stream, Args... args) {
+  const mma::Geometry geo = mma::geometry(t.D, t.C, tile_a);
+  const int smem = geo.anchors + t.stages * geo.stage;
+  const cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, threads, smem, (cudaStream_t)stream>>>(t, args...);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Pass 2 on the tensor cores. s, g: float32 (parts, P), one row of partial
+// sums per part of the walk over M; neg float32 (P,). tile_a: anchors per
+// block, 128 (8 warps) or 256 (16 warps).
+extern "C" int ucd_contrastive_pass2_mma(
+    const void* af, const void* ap, const void* cf, const void* cp,
+    const void* la, const void* av, const void* an, const void* lc,
+    const void* cv, const void* cn, const void* neg, void* s, void* g, int P,
+    int M, int D, int C, float tau, int parts, int stages, int tile_a,
+    void* stream) {
+  if (tile_a != 128 && tile_a != 256) return (int)cudaErrorInvalidValue;
+  const mma::Operands t = mma_operands(af, ap, cf, cp, la, av, an, lc, cv, cn,
+                                       P, M, D, C, tau, parts, stages, tile_a);
+  if (!t.stages) return (int)cudaErrorInvalidValue;
+  const dim3 grid(P / tile_a, parts);
+  if (tile_a == 128)
+    return launch_mma(mma::contrastive_pass2_mma_kernel<8>, grid, 256, t,
+                      tile_a, stream, (const float*)neg, (float*)s, (float*)g);
+  return launch_mma(mma::contrastive_pass2_mma_kernel<16>, grid, 512, t,
+                    tile_a, stream, (const float*)neg, (float*)s, (float*)g);
+}
+
+// The backward on the tensor cores. da: float32 (parts, P, D), one partial
+// dA per part of the walk over M; neg, g, coef float32 (P,). tile_a: 128
+// (8 warps; the dA slice leaves no registers for more). D = 256, the model's
+// width, takes the instantiation that knows it when compiled unless
+// known_depth is 0 (a measurement of the general code).
+extern "C" int ucd_contrastive_bwd_mma(
+    const void* af, const void* ap, const void* cf, const void* cp,
+    const void* la, const void* av, const void* an, const void* lc,
+    const void* cv, const void* cn, const void* neg, const void* g,
+    const void* coef, void* da, int P, int M, int D, int C, float tau,
+    int parts, int stages, int tile_a, int known_depth, void* stream) {
+  if (tile_a != 128) return (int)cudaErrorInvalidValue;
+  const mma::Operands t = mma_operands(af, ap, cf, cp, la, av, an, lc, cv, cn,
+                                       P, M, D, C, tau, parts, stages, tile_a);
+  const int slices = (D + mma::DB - 1) / mma::DB;
+  if (!t.stages || slices > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(P / tile_a, parts, slices);
+  if (D == mma::DB && known_depth)
+    return launch_mma(mma::contrastive_bwd_mma_kernel<8, mma::DB / 16>, grid,
+                      256, t, tile_a, stream, (const float*)neg,
+                      (const float*)g, (const float*)coef, (float*)da);
+  return launch_mma(mma::contrastive_bwd_mma_kernel<8, 0>, grid, 256, t,
+                    tile_a, stream, (const float*)neg, (const float*)g,
+                    (const float*)coef, (float*)da);
 }

@@ -1,6 +1,7 @@
-"""Streaming (tiled) UCD pixel-contrastive loss: the wrapper of the three
-CUDA kernels of `csrc/tiled_contrastive.cu`, their plain PyTorch versions
-and their launch counts.
+"""Streaming (tiled) UCD pixel-contrastive loss: the wrapper of the CUDA
+kernels of `csrc/tiled_contrastive.cu` (f32-FMA variant) and
+`csrc/tiled_contrastive_mma.cuh` (tensor-core variant), their plain PyTorch
+versions and their launch counts.
 
 Counterpart of ucd_tpu/ops/pallas_contrastive.py:
 
@@ -10,7 +11,7 @@ Counterpart of ucd_tpu/ops/pallas_contrastive.py:
   launch_pass2 / pass2_plain     <- _pass2_kernel: S_i, G_i per anchor
   launch_bwd / bwd_plain         <- _bwd_kernel: dA, the gradient to the
                                     anchor features (closed form)
-  prepare                        <- _prep (checks and casts; no padding)
+  prepare, bf16_layout           <- _prep (checks, casts, padding)
   finish_loss, backward_coef     <- the reductions around the kernels in
                                     _pallas_fwd_impl and _pallas_bwd
 
@@ -24,20 +25,34 @@ mask are constants.
 `compute_dtype` float32 multiplies in true f32; bfloat16 rounds features and
 probabilities to bf16 once (products still accumulate in f32) and rounds
 dL/dadc to bf16 before the backward's second product, as the JAX kernel's
-bf16 mode does. The plain versions round at the same points. The kernels
-read float32 in both modes: the wrapper widens the rounded values again,
-which changes no product (bf16 x bf16 is exact in f32).
+bf16 mode does. The plain versions round at the same points.
+
+Two kernel variants, chosen from the mode alone (`kernel_variant`), with no
+fallback from one to the other:
+
+  "fma"  f32 mode: pass 1, pass 2 and the backward as f32 FMAs on float32
+         operands (no padding: the kernels mask the ragged edges). Bound by
+         operations at the f32 rate; one block per 64 anchors walks all
+         contrast tiles, every sum stays in registers.
+  "mma"  bf16 mode: pass 2 and the backward on the tensor cores
+         (`mma.sync` m16n8k16, bf16 x bf16 -> f32). They read 2-byte
+         operands that `bf16_layout` casts once and zero-pads to the
+         `mma.sync` tile shapes (rows of P to 256, rows of M to 64, D and C to
+         16; padded slots are invalid, so they change no sum). Bound by
+         operations at the bf16 tensor-core rate: the anchor tile is
+         resident in shared memory, contrast tiles arrive through a
+         `cp.async` ring, dL/dadc goes from the first product's accumulators
+         to the second product's operand in registers, and the walk over M
+         is split into parts (`m_parts`) whose partial S, G and dA the
+         wrapper adds in a fixed order (`sum_parts`), so that two runs give
+         the same bits. Pass 1 has no tensor-core variant yet: in bf16 mode
+         it runs the FMA kernel on the bf16 values widened to f32 again
+         (bf16 x bf16 is exact in f32).
 
 On a CUDA batch the loss launches the kernels (or raises); on a CPU batch
 it runs the plain versions (float64 stays float64 there, a test-only
 dtype). The plain versions hold P x M matrices: they are for tests and for
 the on-card comparison, not for the train path.
-
-Kernel notes (details in the source): bound by operations (three to five
-P x M x D products per step against 25 MB of inputs); one block per 64
-anchors walks all contrast tiles, so every per-anchor sum and the dA tile
-stay in registers, nothing is reduced across blocks and two runs give the
-same bits.
 """
 
 from __future__ import annotations
@@ -45,9 +60,10 @@ from __future__ import annotations
 import ctypes
 import functools
 import threading
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Sequence, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import build
 from .contrastive import ContrastiveBatch, pair_masks
@@ -155,27 +171,164 @@ def backward_coef(num: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
 # the kernels' wrapper
 # ---------------------------------------------------------------------------
 
-class Prepared(NamedTuple):
-    """A batch as the kernels take it: contiguous float32 features /
-    probabilities (rounded to bf16 and widened again in bf16 mode), int32
-    labels, one byte per validity / is-new bit."""
+# The tensor-core kernels' tiles (csrc/tiled_contrastive_mma.cuh): contrast
+# slots per ring stage, anchors per block of each kernel, the depth of one
+# `mma.sync` step, and the dynamic shared memory a block may use.
+MMA_TILE_C = 64
+MMA_TILE_A = {"pass2": (256, 128), "bwd": (128,)}  # preferred first
+MMA_K = 16
+MMA_SMEM_LIMIT = 232448
+MMA_MAX_STAGES = 4
+MMA_MAX_PARTS = 16
+
+
+def kernel_variant(compute_dtype) -> str:
+    """Which kernels pass 2 and the backward launch on a CUDA batch: "fma"
+    (f32 FMAs) in float32 mode, "mma" (tensor cores) in bfloat16 mode.
+    Nothing else decides it, and neither gives way to the other."""
+    _check_dtype(compute_dtype)
+    return "mma" if compute_dtype == torch.bfloat16 else "fma"
+
+
+def _round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+class Bf16Operands(NamedTuple):
+    """A batch as the tensor-core kernels take it: contiguous bfloat16
+    features (P', D'), (M', D') and probabilities (P', C'), (M', C'),
+    zero-padded; int32 labels and one byte per validity / is-new bit, padded
+    to P' / M' with invalid slots; `dims` the true (P, M, D, C)."""
     af: torch.Tensor
     ap: torch.Tensor
     cf: torch.Tensor
     cp: torch.Tensor
     slots: tuple            # la, av, an, lc, cv, cn
-    round_dadc: int         # 1 in bf16 mode
+    dims: tuple
 
-    @property
-    def dims(self):
-        (P, D), M, C = self.af.shape, self.cf.shape[0], self.ap.shape[1]
-        return P, M, D, C
+
+def bf16_layout(anchor_feat, anchor_prob, contrast_feat, contrast_prob,
+                slots: Sequence[torch.Tensor],
+                tile_a: int = max(max(MMA_TILE_A.values())),
+                tile_c: int = MMA_TILE_C) -> Bf16Operands:
+    """Cast features and probabilities to bfloat16 once (round to nearest
+    even: the values `_rounded` gives, in 2 bytes) and zero-pad them to what
+    `mma.sync` takes: D and C to a multiple of 16, the rows
+    of P to `tile_a`, the rows of M to `tile_c`. The slot arrays (la, av, an,
+    lc, cv, cn: int32 labels, uint8 flags) are padded with invalid slots,
+    which enter no sum. Works on CPU and CUDA tensors. Where a shape is
+    already aligned nothing is copied beyond the cast: the train shape
+    (P 8192, M 16384, D 256, C 16) pays nothing for padding."""
+    P, D = anchor_feat.shape
+    M, C = contrast_feat.shape[0], anchor_prob.shape[1]
+    Pp, Mp = _round_up(P, tile_a), _round_up(M, tile_c)
+    Dp, Cp = _round_up(D, MMA_K), _round_up(C, MMA_K)
+
+    def pad(x, rows, cols=None):
+        if cols is None:
+            return (x if x.shape[0] == rows
+                    else F.pad(x, (0, rows - x.shape[0]))).contiguous()
+        x = x.detach().to(torch.bfloat16)
+        if x.shape != (rows, cols):
+            x = F.pad(x, (0, cols - x.shape[1], 0, rows - x.shape[0]))
+        return x.contiguous()
+
+    la, av, an, lc, cv, cn = slots
+    return Bf16Operands(
+        pad(anchor_feat, Pp, Dp), pad(anchor_prob, Pp, Cp),
+        pad(contrast_feat, Mp, Dp), pad(contrast_prob, Mp, Cp),
+        (pad(la, Pp), pad(av, Pp), pad(an, Pp),
+         pad(lc, Mp), pad(cv, Mp), pad(cn, Mp)), (P, M, D, C))
+
+
+def ring_stages(D: int, C: int, tile_a: int,
+                max_stages: int = MMA_MAX_STAGES) -> int:
+    """Stages of the contrast-tile ring that fit beside the resident anchor
+    tile in a block's shared memory, for padded widths D and C (the byte
+    layout of `mma::geometry`); at most `max_stages`. Raises if not even
+    two fit."""
+    pitch = (D * 2 + 16) + (C * 2 + 16)
+    anchors = tile_a * pitch
+    stage = MMA_TILE_C * pitch + MMA_TILE_C * 6
+    stages = min(max_stages, (MMA_SMEM_LIMIT - anchors) // stage)
+    if stages < 2:
+        raise ValueError(
+            f"the tensor-core contrastive kernels need {anchors} + 2 x "
+            f"{stage} bytes of shared memory at D={D}, C={C}; a block has "
+            f"{MMA_SMEM_LIMIT}")
+    return stages
+
+
+def m_parts(n_row_blocks: int, n_tiles: int, n_sm: int,
+            parts: Optional[int] = None) -> int:
+    """Into how many parts the walk over the `n_tiles` contrast tiles is
+    split (the grid's second axis): enough for `n_row_blocks` x parts blocks
+    to fill `n_sm` multiprocessors once, at most MMA_MAX_PARTS, and no part
+    without a tile. A function of the shapes and the card alone, so the
+    order of every sum is fixed. `parts` overrides the choice (it is
+    normalized the same way)."""
+    if parts is None:
+        parts = max(1, min(MMA_MAX_PARTS, n_sm // max(n_row_blocks, 1)))
+    parts = max(1, min(parts, n_tiles))
+    per_part = -(-n_tiles // parts)
+    return -(-n_tiles // per_part)
+
+
+def sum_parts(parts: torch.Tensor) -> torch.Tensor:
+    """Sum over the leading axis (the parts of the walk over M) from the
+    first part to the last: a fixed order, so the same bits every run."""
+    out = parts[0]
+    for k in range(1, parts.shape[0]):
+        out = out + parts[k]
+    return out
+
+
+class MmaTune(NamedTuple):
+    """Launch parameters of a tensor-core kernel that a measurement may
+    override; None keeps the wrapper's choice."""
+    tile_a: Optional[int] = None      # anchors per block
+    parts: Optional[int] = None       # parts of the walk over M
+    max_stages: Optional[int] = None  # cap of the ring depth
+    known_depth: Optional[int] = None  # backward; 0: general code at D 256
+
+
+def anchor_tile(kernel: str, D: int, C: int) -> int:
+    """Anchors per block of a tensor-core kernel ("pass2" | "bwd") at padded
+    widths D, C: the first of its tiles whose resident anchors leave room
+    for a ring (pass 2 takes 256 anchors = 16 warps where they fit, 128
+    with ADE's 151 probabilities). Raises if none does."""
+    for tile_a in MMA_TILE_A[kernel]:
+        try:
+            ring_stages(D, C, tile_a)
+            return tile_a
+        except ValueError as e:
+            err = e
+    raise err
+
+
+class Prepared(NamedTuple):
+    """A batch as the kernels take it. `af`, `cf` (and in f32 mode `ap`,
+    `cp`): contiguous float32 for the FMA kernels; in bf16 mode they are the
+    bf16-rounded features widened again (pass 1 reads them) and `ap` / `cp`
+    are None. `slots`: int32 labels, one byte per validity / is-new bit.
+    `variant`: what pass 2 and the backward launch; `mma`: their operands
+    when that is the tensor-core variant."""
+    af: torch.Tensor
+    ap: Optional[torch.Tensor]
+    cf: torch.Tensor
+    cp: Optional[torch.Tensor]
+    slots: tuple            # la, av, an, lc, cv, cn
+    variant: str            # "fma" | "mma"
+    mma: Optional[Bf16Operands]
+    dims: tuple             # P, M, D, C
 
 
 def prepare(batch: ContrastiveBatch, compute_dtype=torch.float32) -> Prepared:
-    """Check a CUDA batch and lay it out for the kernels (no padding: the
-    kernels mask the ragged edges themselves)."""
-    _check_dtype(compute_dtype)
+    """Check a CUDA batch and lay it out for the kernels of its mode: float32
+    operands as they are for the FMA variant (no padding: those kernels mask
+    the ragged edges themselves), `bf16_layout` for the tensor-core
+    variant."""
+    variant = kernel_variant(compute_dtype)
     A, C = batch.anchor_feat, batch.contrast_feat
     if A.device.type != "cuda":
         raise ValueError(f"the tiled contrastive kernels run on CUDA "
@@ -197,7 +350,8 @@ def prepare(batch: ContrastiveBatch, compute_dtype=torch.float32) -> Prepared:
             f"probabilities must be (P, C) and (M, C), got "
             f"{tuple(batch.anchor_prob.shape)} and "
             f"{tuple(batch.contrast_prob.shape)}")
-    if min(P, M, A.shape[1], batch.anchor_prob.shape[1]) < 1:
+    dims = (P, M, A.shape[1], batch.anchor_prob.shape[1])
+    if min(dims) < 1:
         raise ValueError("empty contrastive batch")
     slots = []
     for n, label, valid, is_new in (
@@ -212,41 +366,56 @@ def prepare(batch: ContrastiveBatch, compute_dtype=torch.float32) -> Prepared:
                     f"{tuple(t.shape)} {t.dtype} on {t.device}")
         slots += [label.contiguous(), valid.contiguous().view(torch.uint8),
                   is_new.contiguous().view(torch.uint8)]
+    slots = tuple(slots)
+    if variant == "fma":
+        def cast(x):
+            return x.detach().contiguous()
 
-    def cast(x):
-        return _rounded(x.detach(), compute_dtype).contiguous()
-
-    return Prepared(cast(A), cast(batch.anchor_prob), cast(C),
-                    cast(batch.contrast_prob), tuple(slots),
-                    int(compute_dtype == torch.bfloat16))
+        return Prepared(cast(A), cast(batch.anchor_prob), cast(C),
+                        cast(batch.contrast_prob), slots, variant, None, dims)
+    ops = bf16_layout(A, batch.anchor_prob, C, batch.contrast_prob, slots)
+    # cp.async copies 16 bytes at a time from 16-byte aligned addresses
+    ops = ops._replace(slots=tuple(
+        t if t.data_ptr() % 16 == 0 else t.clone() for t in ops.slots))
+    D = dims[2]
+    return Prepared(ops.af[:P, :D].float().contiguous(), None,
+                    ops.cf[:M, :D].float().contiguous(), None, slots,
+                    variant, ops, dims)
 
 
 @functools.lru_cache(maxsize=None)
 def _kernel_fns():
-    """(pass1, pass2, bwd) entry points with their C signatures:
+    """The C entry points with their signatures:
     pass1(af, cf, 6 slot arrays, neg, num, P, M, D, tau, stream)
     pass2(af, ap, cf, cp, 6 slot arrays, neg, s, g, P, M, D, C, tau, stream)
     bwd(af, ap, cf, cp, 6 slot arrays, neg, g, coef, da, P, M, D, C, tau,
-        round_dadc, stream)."""
+        stream)
+    pass2_mma / bwd_mma: the same pointers (bf16 operands, padded), then
+        P, M, D, C, tau, parts, stages, tile_a, (bwd_mma: known_depth,)
+        stream."""
     lib = build.load(KERNEL)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    fns = (lib.ucd_contrastive_pass1, lib.ucd_contrastive_pass2,
-           lib.ucd_contrastive_bwd)
-    for fn, n_ptr, n_int, flags in zip(fns, (10, 13, 14), (3, 4, 4),
-                                       ([], [], [i])):
+    fns = {"pass1": (lib.ucd_contrastive_pass1, 10, 3),
+           "pass2": (lib.ucd_contrastive_pass2, 13, 4),
+           "bwd": (lib.ucd_contrastive_bwd, 14, 4),
+           "pass2_mma": (lib.ucd_contrastive_pass2_mma, 13, 4),
+           "bwd_mma": (lib.ucd_contrastive_bwd_mma, 14, 4)}
+    for name, (fn, n_ptr, n_int) in fns.items():
         fn.restype = ctypes.c_int
-        fn.argtypes = [p] * n_ptr + [i] * n_int + [f] + flags + [p]
-    return fns
+        fn.argtypes = [p] * n_ptr + [i] * n_int + [f] \
+            + [i] * {"pass2_mma": 3, "bwd_mma": 4}.get(name, 0) + [p]
+    return {name: fn for name, (fn, _, _) in fns.items()}
 
 
-def _call(fn, prep: Prepared, ptrs, ints, temperature: float, *flags):
-    device = prep.af.device
+def _call(name: str, device, ptrs, ints, temperature: float, *flags):
+    fn = _kernel_fns()[name]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = fn(*(t.data_ptr() for t in ptrs), *ints, float(temperature),
                  *flags, stream)
     if err != 0:
-        raise RuntimeError(f"{KERNEL} kernel launch failed: CUDA error {err}")
+        raise RuntimeError(f"{KERNEL} kernel {name} failed to launch: CUDA "
+                           f"error {err}")
 
 
 def _row(prep: Prepared) -> torch.Tensor:
@@ -266,39 +435,95 @@ def _check_rows(prep: Prepared, *rows: torch.Tensor):
                 f"{tuple(x.shape)} on {x.device}")
 
 
+@functools.lru_cache(maxsize=None)
+def _n_sm(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+def _call_mma(kernel: str, prep: Prepared, rows, out_cols, temperature,
+              tune: Optional[MmaTune]):
+    """Launch a tensor-core kernel over the padded operands: `rows` are its
+    per-anchor inputs (padded here with zeros), the outputs are allocated as
+    (parts, P', *out_cols) each and returned."""
+    ops, tune = prep.mma, tune or MmaTune()
+    (Pp, Dp), Mp, Cp = ops.af.shape, ops.cf.shape[0], ops.ap.shape[1]
+    tile_a = tune.tile_a or anchor_tile(kernel, Dp, Cp)
+    if Pp % tile_a:
+        raise ValueError(f"anchor tile {tile_a} does not divide the padded "
+                         f"P = {Pp}")
+    device = ops.af.device
+    stages = ring_stages(Dp, Cp, tile_a, tune.max_stages or MMA_MAX_STAGES)
+    parts = m_parts(Pp // tile_a, Mp // MMA_TILE_C, _n_sm(device.index),
+                    tune.parts)
+    P = prep.dims[0]
+    rows = [x if Pp == P else F.pad(x, (0, Pp - P)) for x in rows]
+    out = [torch.empty((parts, Pp, *cols), dtype=torch.float32,
+                       device=device) for cols in out_cols]
+    _call(f"{kernel}_mma", device,
+          (ops.af, ops.ap, ops.cf, ops.cp, *ops.slots, *rows, *out),
+          (Pp, Mp, Dp, Cp), temperature, parts, stages, tile_a,
+          *((1 if tune.known_depth is None else tune.known_depth,)
+            if kernel == "bwd" else ()))
+    return out
+
+
 def launch_pass1(prep: Prepared, temperature: float):
     """Launch contrastive_pass1_kernel. Returns (neg, num), f32 (P,)."""
     P, M, D, _ = prep.dims
     neg, num = _row(prep), _row(prep)
-    _call(_kernel_fns()[0], prep, (prep.af, prep.cf, *prep.slots, neg, num),
+    _call("pass1", prep.af.device, (prep.af, prep.cf, *prep.slots, neg, num),
           (P, M, D), temperature)
     with _count_lock:
         pixel_contrastive_loss_tiled.launches_pass1 += 1
     return neg, num
 
 
-def launch_pass2(prep: Prepared, neg: torch.Tensor, temperature: float):
-    """Launch contrastive_pass2_kernel. Returns (S, G), f32 (P,)."""
+def launch_pass2(prep: Prepared, neg: torch.Tensor, temperature: float, *,
+                 tune: Optional[MmaTune] = None):
+    """Launch contrastive_pass2_kernel (FMA variant) or
+    contrastive_pass2_mma_kernel (tensor-core variant; `tune` overrides its
+    launch parameters, for measurements). Returns (S, G), f32 (P,)."""
     _check_rows(prep, neg)
-    s, g = _row(prep), _row(prep)
-    _call(_kernel_fns()[1], prep,
-          (prep.af, prep.ap, prep.cf, prep.cp, *prep.slots, neg, s, g),
-          prep.dims, temperature)
+    mma = prep.variant == "mma"
+    if mma:
+        P = prep.dims[0]
+        s, g = (sum_parts(x)[:P] for x in _call_mma(
+            "pass2", prep, (neg,), ((), ()), temperature, tune))
+    else:
+        s, g = _row(prep), _row(prep)
+        _call("pass2", prep.af.device,
+              (prep.af, prep.ap, prep.cf, prep.cp, *prep.slots, neg, s, g),
+              prep.dims, temperature)
     with _count_lock:
         pixel_contrastive_loss_tiled.launches_pass2 += 1
+        pixel_contrastive_loss_tiled.launches_pass2_mma += mma
     return s, g
 
 
-def launch_bwd(prep: Prepared, neg, g, coef, temperature: float):
-    """Launch contrastive_bwd_kernel. Returns dA, f32 (P, D)."""
+def launch_bwd(prep: Prepared, neg, g, coef, temperature: float, *,
+               tune: Optional[MmaTune] = None):
+    """Launch contrastive_bwd_kernel (FMA variant) or
+    contrastive_bwd_mma_kernel (tensor-core variant; `tune` as in
+    launch_pass2). Returns dA, f32 (P, D)."""
     _check_rows(prep, neg, g, coef)
-    da = torch.empty(prep.af.shape, dtype=torch.float32,
-                     device=prep.af.device)
-    _call(_kernel_fns()[2], prep,
-          (prep.af, prep.ap, prep.cf, prep.cp, *prep.slots, neg, g, coef, da),
-          prep.dims, temperature, prep.round_dadc)
+    mma = prep.variant == "mma"
+    if mma:
+        P, _, D, _ = prep.dims
+        Dp = prep.mma.af.shape[1]
+        (da,) = _call_mma("bwd", prep, (neg, g, coef), ((Dp,),), temperature,
+                          tune)
+        da = sum_parts(da)
+        if da.shape != (P, D):
+            da = da[:P, :D].contiguous()
+    else:
+        da = torch.empty(prep.af.shape, dtype=torch.float32,
+                         device=prep.af.device)
+        _call("bwd", prep.af.device,
+              (prep.af, prep.ap, prep.cf, prep.cp, *prep.slots, neg, g, coef,
+               da), prep.dims, temperature)
     with _count_lock:
         pixel_contrastive_loss_tiled.launches_bwd += 1
+        pixel_contrastive_loss_tiled.launches_bwd_mma += mma
     return da
 
 
@@ -351,7 +576,8 @@ def pixel_contrastive_loss_tiled(batch: ContrastiveBatch,
     """Drop-in replacement for ops.contrastive.pixel_contrastive_loss
     (stabilized form) that streams the contrast set. A CUDA batch launches
     the kernels (counted in `.launches_pass1`, `.launches_pass2`,
-    `.launches_bwd`) or raises; a CPU batch takes the plain stages. Gradient
+    `.launches_bwd`; `.launches_pass2_mma` / `.launches_bwd_mma` count those
+    of them that were the tensor-core variant) or raises; a CPU batch takes the plain stages. Gradient
     flows to `batch.anchor_feat` only, through the closed-form backward."""
     _check_dtype(compute_dtype)
     device = batch.anchor_feat.device
@@ -365,3 +591,5 @@ def pixel_contrastive_loss_tiled(batch: ContrastiveBatch,
 pixel_contrastive_loss_tiled.launches_pass1 = 0
 pixel_contrastive_loss_tiled.launches_pass2 = 0
 pixel_contrastive_loss_tiled.launches_bwd = 0
+pixel_contrastive_loss_tiled.launches_pass2_mma = 0
+pixel_contrastive_loss_tiled.launches_bwd_mma = 0
