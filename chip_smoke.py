@@ -9,18 +9,19 @@ Phases (any failure exits non-zero, and no result line is printed):
      nvcc (sm_90a), all sources at once, and print the card;
   2. hold each kernel against its plain PyTorch version on the card:
      fused upsample+argmax (the serving shape, ADE's 151 classes, a
-     non-multiple shape, bf16 input, identity resolution, NaN pixels) and
-     the fused upsample+CE/KD forward and backward kernels (the six-mode
-     matrix at the train shape, ADE's class counts, a non-multiple shape,
-     identity resolution, alpha 2, all-ignore labels, uint8 vs int32
-     labels, bit-reproducible backward) and the three tiled contrastive
-     kernels (pass 1, pass 2, backward and the composed loss at the train
-     shape, ADE's 151 probabilities, non-aligned P = 50 / C = 7, a feature
-     width beyond one backward slice, a compacted batch and no GT-new pixel,
-     each in f32 mode (FMA kernels) and in bf16 mode (pass 2 and the
-     backward on the tensor cores, over zero-padded 2-byte operands); no
-     valid anchor, bit-reproducible backward, and the tiled loss against
-     the dense one);
+     non-multiple shape, bf16 input, identity resolution, and the JAX
+     kernel's NaN rule: NaN in a source pixel, in one class value, at a row
+     edge, in bf16, all NaN) and the fused upsample+CE/KD forward and
+     backward kernels (the six-mode matrix at the train shape, ADE's class
+     counts, a non-multiple shape, identity resolution, alpha 2, all-ignore
+     labels, uint8 vs int32 labels, bit-reproducible backward) and the
+     three tiled contrastive kernels (pass 1, pass 2, backward and the
+     composed loss at the train shape, ADE's 151 probabilities, non-aligned
+     P = 50 / C = 7, a feature width beyond one backward slice, a compacted
+     batch and no GT-new pixel, each in f32 mode (FMA kernels) and in bf16
+     mode (all three on the tensor cores, over zero-padded 2-byte
+     operands); pass 1 twice with the same bits, no valid anchor,
+     bit-reproducible backward, and the tiled loss against the dense one);
   3. drive the two main paths at full width (ResNet-101 DeepLab-v3, os 16,
      head 256, pooling 32; seeded random weights with BN statistics
      calibrated on one seeded batch), each with the kernels' launch counts
@@ -95,6 +96,10 @@ from ucd_torch.ops import tiled_contrastive as TT  # noqa: E402
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM, NVIDIA data sheet
 F32_FLOP_PER_S = 67e12         # H100 SXM f32 outside the tensor cores
 BF16_FLOP_PER_S = 989e12       # H100 SXM dense bf16 in the tensor cores
+# exp2 / log2 / reciprocal in the special function units: 16 a clock per
+# SM (CUDA C programming guide, arithmetic instructions, compute
+# capability 9.0) x 132 SMs x 1.98 GHz (the boost clock behind 67e12)
+SFU_OP_PER_S = 16 * 132 * 1.98e9
 # VOC 15-5s at its last step: the model README.md's export example serves
 CLASSES = (16, 1, 1, 1, 1, 1)
 BATCH, SIZE = 8, 512
@@ -172,9 +177,11 @@ def make_labels(n, h, w, n_classes, seed) -> np.ndarray:
 def check_fused_argmax(z, out_hw, gap_tol, rate_tol) -> dict:
     """Kernel vs plain on the same CUDA tensor. Mismatches are allowed only
     where the plain upsample's top-2 gap is below `gap_tol`, at a rate
-    below `rate_tol`; pixels with a NaN class value must agree exactly
-    (both give class 0). max_abs_err is the largest logit gap, under the
-    plain upsample, between the two versions' chosen classes."""
+    below `rate_tol`; the pixels of the NaN rule (a NaN in the output row's
+    source window, or a NaN upsampled value) must agree exactly: class 0
+    in both, and the kernel's class-0 pixels outside them are real argmax
+    answers. max_abs_err is the largest logit gap, under the plain upsample,
+    between the two versions' chosen classes."""
     got = FE.fused_argmax(z, out_hw)
     want = FE.fused_argmax_plain(z, out_hw)
     torch.cuda.synchronize()
@@ -182,7 +189,7 @@ def check_fused_argmax(z, out_hw, gap_tol, rate_tol) -> dict:
     assert got.dtype == torch.int32
     up = F.interpolate(z.permute(0, 3, 1, 2).float(), size=out_hw,
                        mode="bilinear", align_corners=False)
-    nan_px = up.isnan().any(dim=1)
+    nan_px = up.isnan().any(dim=1) | FE.nan_rows(z, out_hw)[:, :, None]
     assert torch.equal(got[nan_px], want[nan_px]), "NaN pixels differ"
     assert (got[nan_px] == 0).all()
     ok = ~nan_px
@@ -212,6 +219,9 @@ def phase_kernels(dev) -> dict:
     z_nan = rnd(2, 8, 8, 21)
     z_nan[0, 1, 2, :] = float("nan")      # fully-NaN source pixel
     z_nan[1, 5, 3, 7] = float("nan")      # one NaN class value
+    z_edge = rnd(2, 32, 32, 21)
+    z_edge[1, 0, 31, 4] = float("nan")    # first row, last column
+    z_edge[0, 31, 0, 9] = float("nan")    # last row, first column
     cases = {
         "serving (8,32,32,21) f32 -> 512": (rnd(8, 32, 32, 21), (512, 512)),
         "ADE (8,32,32,151) f32 -> 512": (rnd(8, 32, 32, 151), (512, 512)),
@@ -221,6 +231,9 @@ def phase_kernels(dev) -> dict:
                                      (512, 512)),
         "identity (2,16,16,21)": (rnd(2, 16, 16, 21), (16, 16)),
         "partial NaN (2,8,8,21) -> 96": (z_nan, (96, 96)),
+        "NaN at row edges (2,32,32,21) -> 512": (z_edge, (512, 512)),
+        "NaN at row edges bf16 (2,32,32,21) -> 512": (z_edge.bfloat16(),
+                                                      (512, 512)),
         "all NaN (1,4,4,5) -> 8": (torch.full((1, 4, 4, 5), float("nan"),
                                               device=dev), (8, 8)),
     }
@@ -231,6 +244,9 @@ def phase_kernels(dev) -> dict:
                                2e-2 if bf16 else 1e-3)
         log(f"[kernel] fused_argmax {name}: ok {json.dumps(r)}")
         worst = {k: max(worst[k], r[k]) for k in worst}
+        if "NaN at row edges" in name:
+            # whole rows of tiles, far more than the NaN pixels' own taps
+            assert 0 < r["nan_pixels"] < z.shape[0] * hw[0] * hw[1], r
     all_nan = FE.fused_argmax(cases["all NaN (1,4,4,5) -> 8"][0], (8, 8))
     assert (all_nan == 0).all()
     # exact ties: classes 3 and 7 carry the same values at every source
@@ -412,8 +428,16 @@ def check_contrastive(batch, dtype) -> dict:
         "mma" if dtype == torch.bfloat16 else "fma")
     assert (prep.mma is not None) == (prep.variant == "mma")
     if prep.mma is not None:
+        # all three stages read the 2-byte operands: no float32 copies
         assert {t.dtype for t in prep.mma[:4]} == {torch.bfloat16}
+        assert prep.af is None and prep.cf is None
+    mma_before = fn.launches_pass1_mma
     neg, num = TT.launch_pass1(prep, TAU)
+    assert fn.launches_pass1_mma == mma_before + (prep.variant == "mma")
+    again = TT.launch_pass1(prep, TAU)
+    assert torch.equal(neg, again[0]) and torch.equal(num, again[1]), \
+        "pass 1 twice: different bits"
+    before = (before[0] + 1,) + before[1:]
     s, g = TT.launch_pass2(prep, neg_p, TAU)
     da = TT.launch_bwd(prep, neg_p, g_p, coef, TAU)
     torch.cuda.synchronize()
@@ -947,7 +971,8 @@ def phase_train(dev) -> dict:
     FE.fused_argmax.launches = 0
     con = TT.pixel_contrastive_loss_tiled
     con.launches_pass1 = con.launches_pass2 = con.launches_bwd = 0
-    con.launches_pass2_mma = con.launches_bwd_mma = 0
+    con.launches_pass1_mma = con.launches_pass2_mma = 0
+    con.launches_bwd_mma = 0
     history = []
     bn_records, hooks = watch_batch_stats(model)  # over the first step
     for i in range(n_steps):
@@ -987,11 +1012,12 @@ def phase_train(dev) -> dict:
             f"{k} {m[k]:.5f}" for k in ("loss", "lkd", "l_con", "loss_tot",
                                         "lr")))
     assert set(train_counts.values()) == {n_steps}, train_counts
-    # bf16 training runs pass 2 and the backward on the tensor cores: every
-    # one of their launches was the "mma" variant
+    # bf16 training runs all three contrastive kernels on the tensor cores:
+    # every one of their launches was the "mma" variant
     assert TT.kernel_variant(torch.bfloat16) == "mma"
-    assert (con.launches_pass2_mma, con.launches_bwd_mma) == (
-        n_steps, n_steps), (con.launches_pass2_mma, con.launches_bwd_mma)
+    mma_counts = (con.launches_pass1_mma, con.launches_pass2_mma,
+                  con.launches_bwd_mma)
+    assert mma_counts == (n_steps,) * 3, mma_counts
     log(f"[train] after the first step, the {len(bn_records)} BNs' running "
         f"statistics equal old + 0.1 * (batch mean / biased batch variance "
         f"recomputed in plain f32 - old): worst error {bn_err:.3g} of a "
@@ -1121,28 +1147,33 @@ def time_fused_argmax(dev, where) -> dict:
 
 
 def fused_loss_work(B, h, w, C, Co, H, W, old_cl, backward: bool):
-    """(bytes, operations) that the fused loss must move and do at least,
-    for the unce+unkd modes. Bytes: the two logit tensors and the uint8
-    labels read once; the backward also writes dz once. Operations, per
-    output pixel: the separable bilinear interpolation of C + Co logits (3
-    flops per class for the height lerp, and the width lerp of the h source
-    rows shared by H/h output rows); per member of each stabilized
-    log-sum-exp subset (all C, the old_cl old classes, {0} u new = C-Co+1,
-    and the Co old-model classes) one compare, one subtract, one exp and
-    one add = 4; 2 per old class for the KD products; 4 logs and ~10 flops
-    to combine. The backward repeats that (nothing is kept from the
-    forward) and adds per class ~8 flops for the gradient and 4 for the
-    separable fold back to low-res. exp and log count as one operation
-    each, at the f32 rate outside the tensor cores."""
+    """(bytes, operations, special-function operations) that the fused
+    loss must move and do at least, for the unce+unkd modes. Bytes: the two
+    logit tensors and the uint8 labels read once; the backward also writes
+    dz once. Operations, per output pixel: the separable bilinear
+    interpolation of C + Co logits (3 flops per class for the height lerp,
+    and the width lerp of the h source rows shared by H/h output rows); per
+    member of each stabilized log-sum-exp subset (all C, the old_cl old
+    classes, {0} u new = C-Co+1, and the Co old-model classes) one compare,
+    one subtract, one exp and one add = 4; 2 per old class for the KD
+    products; 4 logs and ~10 flops to combine. The backward needs the
+    subsets' maxima and sums again (nothing is kept from the forward) and
+    adds per class ~8 flops for the gradient and 4 for the separable fold
+    back to low-res. Its gradient terms are the sums' own exps times the
+    subsets' reciprocals, so it needs the forward's exp count, the 4 logs
+    becoming 4 reciprocals. exp and log count as one operation each at the
+    f32 rate, and once more, on their own, at the special function units'
+    rate (one exp2 / log2 / reciprocal each)."""
     n_bytes = B * h * w * (C + Co) * 4 + B * H * W
     px = B * H * W
     interp = px * (C + Co) * 3 + B * h * W * (C + Co) * 3
     members = C + old_cl + (C - Co + 1) + Co
     n_ops = interp + px * (members * 4 + Co * 2 + 14)
+    n_sfu = px * (members + 4)
     if backward:
         n_bytes += B * h * w * C * 4 + 8
         n_ops += px * C * 12
-    return n_bytes, n_ops
+    return n_bytes, n_ops, n_sfu
 
 
 def time_fused_loss(dev, where) -> dict:
@@ -1177,14 +1208,21 @@ def time_fused_loss(dev, where) -> dict:
     for name, ms, plain, backward in (
             ("fused_loss_fwd", fwd_ms, plain_fwd_ms, False),
             ("fused_loss_bwd", bwd_ms, plain_both_ms, True)):
-        n_bytes, n_ops = fused_loss_work(B, h, w, C, Co, H, W, 16, backward)
+        n_bytes, n_ops, n_sfu = fused_loss_work(B, h, w, C, Co, H, W, 16,
+                                                backward)
         bytes_ms = n_bytes / HBM_BYTES_PER_S * 1e3
-        ops_ms = n_ops / F32_FLOP_PER_S * 1e3
+        fma_ms = n_ops / F32_FLOP_PER_S * 1e3
+        sfu_ms = n_sfu / SFU_OP_PER_S * 1e3
+        ops_ms = max(fma_ms, sfu_ms)
         out[name] = {"ms": ms, "plain_ms": plain,
                      "bound_ms": max(bytes_ms, ops_ms),
                      "bound_by": "bytes" if bytes_ms >= ops_ms
                      else "operations", "library_ms": None,
-                     "bytes": n_bytes, "operations": n_ops}
+                     "bytes": n_bytes, "operations": n_ops,
+                     "sfu_operations": n_sfu,
+                     "bound_rate": "SFU 4.18e12 op/s" if sfu_ms >= fma_ms
+                     else "f32 FMA 67e12 flop/s",
+                     "fma_bound_ms": fma_ms, "sfu_bound_ms": sfu_ms}
     out["fused_loss_fwd"].update(
         with_partial_sum_ms=fwd_full_ms, ce_none_ms=ce_none_ms,
         ce_none_library_ms=library_ms)
@@ -1193,13 +1231,15 @@ def time_fused_loss(dev, where) -> dict:
         f"{where}: kernel {fwd_ms:.4f} ms ({fwd_full_ms:.4f} ms with the "
         f"wrapper's partial sums), plain (dense forward) "
         f"{plain_fwd_ms:.4f} ms, bound {f['bound_ms']:.5f} ms "
-        f"({f['bound_by']}: {f['bytes']} B, {f['operations']} op); ce/none "
+        f"({f['bound_by']} at {f['bound_rate']}: {f['bytes']} B, "
+        f"{f['operations']} op, {f['sfu_operations']} exp/log); ce/none "
         f"mode {ce_none_ms:.4f} ms beside F.interpolate + F.cross_entropy "
         f"{library_ms:.4f} ms")
-    log(f"[time] fused_loss backward, same shape, on {where}: kernel "
-        f"{bwd_ms:.4f} ms, plain (dense forward + backward) "
+    log(f"[time] fused_loss backward (cell + fold kernels), same shape, on "
+        f"{where}: {bwd_ms:.4f} ms, plain (dense forward + backward) "
         f"{plain_both_ms:.4f} ms, bound {b['bound_ms']:.5f} ms "
-        f"({b['bound_by']}: {b['bytes']} B, {b['operations']} op)")
+        f"({b['bound_by']} at {b['bound_rate']}: {b['bytes']} B, "
+        f"{b['operations']} op, {b['sfu_operations']} exp/log)")
     return out
 
 
@@ -1210,15 +1250,14 @@ def tiled_contrastive_work(P, M, D, C, dtype=torch.float32) -> dict:
     the P x M x C joint-probability product; the backward both plus the
     second P x M x D product with the contrast features); the masked
     exp / log epilogue (a few operations per pair beside 2 D) is left out.
-    Bytes: features and probabilities (4 bytes a value; 2 in bf16 mode for
-    pass 2 and the backward, whose kernels read bfloat16, while pass 1 goes
-    on reading float32 in either mode) and the 6-byte slot records read
-    once, the per-anchor rows read and written once, dA written once."""
+    Bytes: features and probabilities (4 bytes a value; 2 in bf16 mode,
+    whose kernels read bfloat16) and the 6-byte slot records read once, the
+    per-anchor rows read and written once, dA written once."""
     wide = 2 if dtype == torch.bfloat16 else 4
     feats, probs = (P + M) * D, (P + M) * C
     slots, row = (P + M) * 6, P * 4
     sim, jm = 2 * P * M * D, 2 * P * M * C
-    return {"contrastive_pass1": (feats * 4 + slots + 2 * row, sim),
+    return {"contrastive_pass1": (feats * wide + slots + 2 * row, sim),
             "contrastive_pass2": ((feats + probs) * wide + slots + 3 * row,
                                   sim + jm),
             "contrastive_bwd": ((feats + probs) * wide + slots + 3 * row
@@ -1256,21 +1295,19 @@ def time_contrastive(dev, where) -> dict:
                                              dtype), 3, 1))}
         rate = BF16_FLOP_PER_S if bf16 else F32_FLOP_PER_S
         work = tiled_contrastive_work(P, M, D, C, dtype)
-        # pass 1 has the FMA kernel in either mode
-        variants = {"contrastive_pass1": "fma",
-                    "contrastive_pass2": prep.variant,
-                    "contrastive_bwd": prep.variant}
+        variants = {name: prep.variant for name in ms}
         launch = {}
         if prep.variant == "mma":
             (Pp, Dp), Cp = prep.mma.af.shape, prep.mma.ap.shape[1]
             n_tiles = prep.mma.cf.shape[0] // TT.MMA_TILE_C
             n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-            for name, kernel in (("contrastive_pass2", "pass2"),
-                                 ("contrastive_bwd", "bwd")):
-                tile_a = TT.anchor_tile(kernel, Dp, Cp)
+            for name, kernel, c in (("contrastive_pass1", "pass1", 0),
+                                    ("contrastive_pass2", "pass2", Cp),
+                                    ("contrastive_bwd", "bwd", Cp)):
+                tile_a = TT.anchor_tile(kernel, Dp, c)
                 launch[name] = {
                     "anchors_per_block": tile_a,
-                    "ring_stages": TT.ring_stages(Dp, Cp, tile_a),
+                    "ring_stages": TT.ring_stages(Dp, c, tile_a),
                     "parts_of_m": TT.m_parts(Pp // tile_a, n_tiles, n_sm)}
         for name, (kernel_ms, plain_ms) in ms.items():
             n_bytes, n_ops = work[name]
@@ -1429,9 +1466,9 @@ def profile(fn, out_dir, name, n=5):
         torch.cuda.synchronize()
     avg = prof.key_averages()
     try:
-        table = avg.table(sort_by="device_time_total", row_limit=60)
+        table = avg.table(sort_by="device_time_total", row_limit=100)
     except (KeyError, AttributeError, RuntimeError):
-        table = avg.table(sort_by="cuda_time_total", row_limit=60)
+        table = avg.table(sort_by="cuda_time_total", row_limit=100)
     path = os.path.join(out_dir, f"{name}_profile.txt")
     with open(path, "w") as f:
         f.write(table)

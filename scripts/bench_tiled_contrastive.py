@@ -1,20 +1,21 @@
 #!/usr/bin/env python3
 """Time the tensor-core variants of the port's tiled contrastive kernels
-(pass 2 and the backward, bf16 mode) on one NVIDIA GPU over their launch
-parameters (`MmaTune`): the anchor tile of a block (128 anchors = 8 warps,
-and for pass 2 256 = 16 warps), the ring depth, the number of parts the walk
-over the contrast set is split into, and for the backward the general code
-(feature width only known at run time) beside the one compiled for D = 256. Two shapes: the train shape at batch 8 (P 8192 x M 16384
-x D 256, C 16) and at batch 16 (P 16384 x M 32768).
+(pass 1, pass 2 and the backward, bf16 mode) on one NVIDIA GPU over their
+launch parameters (`MmaTune`): the anchor tile of a block (128 anchors = 8
+warps, and for passes 1 and 2 256 = 16 warps), the ring depth, the number of
+parts the walk over the contrast set is split into, and for the backward
+the general code (feature width only known at run time) beside the one
+compiled for D = 256. Two shapes: the train shape at batch 8 (P 8192 x M
+16384 x D 256, C 16) and at batch 16 (P 16384 x M 32768).
 
     python3 scripts/bench_tiled_contrastive.py [--iters N]
 
 Every variant is first held against the default variant's result (which
 `chip_smoke.py` holds against the plain version): per-anchor sums within
-1e-5, dA within 1e-4 (Frobenius). Then all variants are timed in turns,
-twice over, with CUDA events, and the f32-mode (FMA) kernels beside them.
-Prints one line per variant and a final JSON object with the card's name
-and power limit."""
+1e-5, `num` exactly, dA within 1e-4 (Frobenius). Then all variants are
+timed in turns, twice over, with CUDA events, and the f32-mode (FMA) kernels
+beside them. Prints one line per variant and a final JSON object with the
+card's name and power limit."""
 
 from __future__ import annotations
 
@@ -35,6 +36,8 @@ TAU = CS.TAU
 T = TT.MmaTune
 # (tile_a, parts, max_stages, known_depth); None keeps the wrapper's choice
 VARIANTS = {
+    "pass1": [T(ta, parts) for ta in (128, 256) for parts in (1, 2, 4, 8)]
+    + [T(128, None, 2)],
     "pass2": [T(ta, parts) for ta in (128, 256) for parts in (1, 2, 4, 8)]
     + [T(256, None, 2)],
     "bwd": [T(128, parts) for parts in (1, 2, 4)]
@@ -60,6 +63,13 @@ def bench_shape(dev, batch_images: int, iters: int) -> dict:
     da0 = TT.launch_bwd(prep, neg, g0, coef, TAU)
 
     runs = {}
+    for tune in VARIANTS["pass1"]:
+        if prep.mma.af.shape[0] % tune.tile_a:
+            continue
+        n1, c1 = TT.launch_pass1(prep, TAU, tune=tune)
+        assert rel(n1, neg) <= 1e-5 and torch.equal(c1, num), tune
+        runs["pass1", tune] = (
+            lambda tune=tune: TT.launch_pass1(prep, TAU, tune=tune))
     for tune in VARIANTS["pass2"]:
         if prep.mma.af.shape[0] % tune.tile_a:
             continue
@@ -73,6 +83,8 @@ def bench_shape(dev, batch_images: int, iters: int) -> dict:
         runs["bwd", tune] = (
             lambda tune=tune: TT.launch_bwd(prep, neg, g0, coef, TAU,
                                             tune=tune))
+    runs["pass1", "f32 mode"] = lambda: TT.launch_pass1(prep32, TAU)
+    runs["pass1", "default"] = lambda: TT.launch_pass1(prep, TAU)
     runs["pass2", "f32 mode"] = lambda: TT.launch_pass2(prep32, neg, TAU)
     runs["bwd", "f32 mode"] = lambda: TT.launch_bwd(prep32, neg, g0, coef, TAU)
     runs["pass2", "default"] = lambda: TT.launch_pass2(prep, neg, TAU)

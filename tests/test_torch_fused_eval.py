@@ -100,31 +100,85 @@ def test_bf16_input():
         z, (96, 96), interpret=True)), up, gap_tol=0.08, rate_tol=0.02)
 
 
-def test_nan_pixels_stay_in_class_range():
-    """Any NaN class value -> class 0, so ids stay in range, as for the JAX
-    kernel; all-NaN logits give 0 everywhere in both packages. The port's
-    NaN pixels are exactly those where the f32 upsample is NaN."""
-    rng = np.random.RandomState(7)
-    C = 5
-    z = rng.randn(1, 4, 4, C).astype(np.float32)
-    z[0, 1, 2, :] = np.nan          # one fully-NaN source pixel
-    z[0, 3, 0, 2] = np.nan          # one partly-NaN source pixel
-    got = _port(z, 8, 8)
-    jgot = np.asarray(JFE.fused_argmax(jnp.asarray(z), (8, 8),
-                                       interpret=True))
+def _separated(seed, B=2, h=8, w=8, C=5):
+    """Random logits whose class 0 never wins on its own (-10), so that
+    every class-0 pixel of either package comes from the NaN rule."""
+    z = np.random.RandomState(seed).randn(B, h, w, C).astype(np.float32)
+    z[..., 0] = -10.0
+    return z
+
+
+NAN_CASES = {"full source pixel": (0, 2, 3, slice(None)),
+             "one class value": (1, 5, 1, 2),
+             "row edge": (1, 0, 7, 4)}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", list(NAN_CASES))
+def test_nan_pixels_stay_in_class_range(case, dtype):
+    """A NaN in the logits gives class 0 to exactly the pixels the JAX
+    kernel (interpret mode) gives class 0: every pixel of the output rows
+    whose tile's 3-row source window holds the NaN (its width dot spreads
+    0 * NaN along the rows), in f32 and in bf16 (classes padded to 16
+    there). All other pixels follow the near-tie rule; ids stay in range."""
+    z = _separated(7)
+    z[NAN_CASES[case]] = np.nan
+    H = W = 64
+    zj = jnp.asarray(z, jnp.dtype(dtype))
+    jgot = np.asarray(JFE.fused_argmax(zj, (H, W), interpret=True))
+    z32 = np.array(zj.astype(jnp.float32))
+    zt = torch.from_numpy(z32).to(getattr(torch, dtype))
+    got = FE.fused_argmax(zt, (H, W)).numpy()
+    zero = got == 0
+    assert zero.any() and not zero.all()
+    np.testing.assert_array_equal(zero, jgot == 0)
+    # the window rule, not the bilinear taps, decides: rows, whole
+    rows = FE.nan_rows(zt, (H, W)).numpy()
+    np.testing.assert_array_equal(zero, np.broadcast_to(rows[:, :, None],
+                                                        zero.shape))
+    up = _up(z32, H, W)
+    bf16 = dtype == "bfloat16"
+    assert_argmax_close(got[~zero], jgot[~zero], up[~zero],
+                        0.08 if bf16 else 1e-4, 2e-2 if bf16 else 1e-3)
     for g in (got, jgot):
-        assert g.min() >= 0 and g.max() < C
-    up = F.interpolate(torch.from_numpy(z).permute(0, 3, 1, 2), size=(8, 8),
-                       mode="bilinear", align_corners=False)
-    nan_px = up.isnan().any(dim=1).numpy()
-    assert nan_px.any() and not nan_px.all()
-    assert (got[nan_px] == 0).all()
-    np.testing.assert_array_equal(got[~nan_px],
-                                  up.argmax(dim=1).numpy()[~nan_px])
-    z_all = np.full((1, 4, 4, C), np.nan, np.float32)
+        assert g.min() >= 0 and g.max() < z.shape[-1]
+
+
+def test_all_nan_logits_give_class_zero():
+    z_all = np.full((1, 4, 4, 5), np.nan, np.float32)
     np.testing.assert_array_equal(_port(z_all, 8, 8), 0)
     np.testing.assert_array_equal(np.asarray(JFE.fused_argmax(
         jnp.asarray(z_all), (8, 8), interpret=True)), 0)
+
+
+@pytest.mark.parametrize("sign", [1.0, -1.0])
+def test_inf_logits_differ_from_jax_inside_the_window(sign):
+    """What the NaN rule leaves out (ROADMAP §C): an inf logit. The JAX
+    kernel's width dot makes inf * 0 = NaN on every pixel of the inf's
+    window that does not tap it with a positive weight, which become class
+    0; the port follows F.interpolate there (finite values, their argmax).
+    Both agree on every pixel outside the window and on the pixels that
+    carry the inf (+inf: its class; -inf: the argmax of the rest)."""
+    z = _separated(9)
+    z[0, 3, 4, 2] = sign * np.inf
+    H = W = 64
+    got = _port(z, H, W)
+    jgot = np.asarray(JFE.fused_argmax(jnp.asarray(z), (H, W),
+                                       interpret=True))
+    zn = z.copy()
+    zn[0, 3, 4, 2] = np.nan
+    window = np.broadcast_to(FE.nan_rows(torch.from_numpy(zn),
+                                         (H, W)).numpy()[:, :, None],
+                             got.shape)
+    up = _up(z, H, W)
+    carries = np.isinf(up[..., 2])
+    assert carries.any() and (window & ~carries).any()
+    np.testing.assert_array_equal(got[~window], jgot[~window])
+    np.testing.assert_array_equal(got[carries], jgot[carries])
+    if sign > 0:
+        assert (got[carries] == 2).all()
+    differ = window & ~carries
+    assert (jgot[differ] == 0).all() and (got[differ] != 0).all()
 
 
 @pytest.mark.parametrize("lowres,out", [

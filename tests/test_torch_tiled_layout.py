@@ -116,12 +116,13 @@ def test_layout_values_are_the_rounded_values(name):
                    for a, b in zip(ops.slots, slots_of(bt)))
 
 
-@pytest.mark.parametrize("stage", ["pass2", "bwd"])
+@pytest.mark.parametrize("stage", ["pass1", "pass2", "bwd"])
 @pytest.mark.parametrize("name", ["C7_D8_P50", "C151", "D300"])
 def test_padding_changes_no_result(name, stage):
-    """pass2_plain and bwd_plain on the padded batch (zero columns of D and
-    C, invalid slots beyond P and M) equal the unpadded result on the true
-    rows and columns; padded anchors get S = G = 0 and a zero gradient."""
+    """pass1_plain, pass2_plain and bwd_plain on the padded batch (zero
+    columns of D and C, invalid slots beyond P and M) equal the unpadded
+    result on the true rows and columns (`num` exactly); padded anchors get
+    neg = num = S = G = 0 and a zero gradient."""
     bt = batch(name)
     ops = layout(bt)
     P, M, D, C = ops.dims
@@ -130,7 +131,11 @@ def test_padding_changes_no_result(name, stage):
         or big.anchor_prob.shape != bt.anchor_prob.shape
     neg, num, g, coef = rows(bt)
     Pp = big.anchor_feat.shape[0]
-    if stage == "pass2":
+    if stage == "pass1":
+        want = TT.pass1_plain(bt, TAU, BF16)
+        got = TT.pass1_plain(big, TAU, BF16)
+        assert torch.equal(got[1][:P], want[1])
+    elif stage == "pass2":
         want = TT.pass2_plain(bt, neg, TAU, BF16)
         got = TT.pass2_plain(big, pad_rows(neg, Pp), TAU, BF16)
     else:
@@ -150,9 +155,10 @@ def test_padding_changes_no_result(name, stage):
 
 @pytest.mark.parametrize("parts", [1, 2, 3, 4])
 def test_split_walk_sums_to_the_unsplit_result(parts):
-    """The walk over M in `parts` ranges of whole tiles: each part's S, G
-    and dA (the plain stages with the other parts' slots invalid) added by
-    `sum_parts` give the unsplit result, and the same bits twice."""
+    """The walk over M in `parts` ranges of whole tiles: each part's neg,
+    num, S, G and dA (the plain stages with the other parts' slots invalid)
+    added by `sum_parts` give the unsplit result (`num` exactly: integer
+    counts), and the same bits twice."""
     bt = batch("C151")
     tile = 16                         # M = 128: 8 tiles of 16 slots here
     M = bt.contrast_feat.shape[0]
@@ -162,22 +168,24 @@ def test_split_walk_sums_to_the_unsplit_result(parts):
     neg, num, g, coef = rows(bt)
 
     def partials():
-        s_k, g_k, da_k = [], [], []
+        out = [[] for _ in range(5)]
         for k in range(parts):
             inside = torch.zeros(M, dtype=torch.bool)
             inside[k * per_part * tile:(k + 1) * per_part * tile] = True
             part = bt._replace(contrast_valid=bt.contrast_valid & inside)
-            s, gg = TT.pass2_plain(part, neg, TAU, BF16)
-            s_k.append(s)
-            g_k.append(gg)
-            da_k.append(TT.bwd_plain(part, neg, g, coef, TAU, BF16))
-        return [TT.sum_parts(torch.stack(x)) for x in (s_k, g_k, da_k)]
+            for acc, x in zip(out, (
+                    *TT.pass1_plain(part, TAU, BF16),
+                    *TT.pass2_plain(part, neg, TAU, BF16),
+                    TT.bwd_plain(part, neg, g, coef, TAU, BF16))):
+                acc.append(x)
+        return [TT.sum_parts(torch.stack(x)) for x in out]
 
     once, twice = partials(), partials()
     assert all(torch.equal(a, b) for a, b in zip(once, twice))
+    assert torch.equal(once[1], num)
     s, gg = TT.pass2_plain(bt, neg, TAU, BF16)
     da = TT.bwd_plain(bt, neg, g, coef, TAU, BF16)
-    for got, want in zip(once, (s, gg, da)):
+    for got, want in zip(once[:1] + once[2:], (neg, s, gg, da)):
         np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-5,
                                    atol=1e-6 * float(want.abs().max()))
 
@@ -212,6 +220,8 @@ def test_m_parts(row_blocks, n_tiles, asked, want):
 @pytest.mark.parametrize("D,C,tile_a,want", [
     (256, 16, 128, 4),        # the train shape: 73728 + 4 x 37248 bytes
     (256, 16, 64, 4),
+    (256, 0, 256, 2),         # pass 1: no probabilities, 16 warps
+    (256, 0, 128, 4),
     (256, 160, 128, 2),       # ADE's 151 probabilities
     (304, 16, 128, 3),
     (16, 16, 128, 4),
@@ -226,6 +236,8 @@ def test_ring_stages(D, C, tile_a, want):
 
 
 @pytest.mark.parametrize("kernel,D,C,want", [
+    ("pass1", 256, 0, 256),   # the train shape: 16 warps per block
+    ("pass1", 304, 0, 128),
     ("pass2", 256, 16, 256),  # the train shape: 16 warps per block
     ("pass2", 256, 160, 128),  # ADE: 256 anchors leave no room for a ring
     ("pass2", 304, 16, 128),
@@ -249,13 +261,38 @@ def test_ring_stages_raises_when_two_do_not_fit():
     (torch.float16, None), (torch.float64, None), (torch.int32, None),
     (None, None)])
 def test_kernel_variant_table(dtype, want):
-    """f32 mode -> the FMA kernels, bf16 mode -> the tensor-core kernels,
+    """f32 mode -> the FMA kernels, bf16 mode -> the tensor-core kernels
+    for all three stages (pass 1 is routed too: each has its anchor tiles),
     anything else raises: the mode alone decides, nothing falls back."""
+    assert set(TT.MMA_TILE_A) == {"pass1", "pass2", "bwd"}
     if want is None:
         with pytest.raises(ValueError, match="compute_dtype"):
             TT.kernel_variant(dtype)
     else:
         assert TT.kernel_variant(dtype) == want
+
+
+@pytest.mark.parametrize("name", ["C7_D8_P50", "aligned_P256_D16_C16"])
+def test_bf16_layout_holds_no_widened_copies(name):
+    """In bf16 mode the kernels' batch is the padded 2-byte operands and the
+    slot arrays alone: no float32 copy of the features or probabilities
+    (pass 1 reads the bf16 operands too). f32 mode hands the float32
+    tensors over and makes no bf16 operands."""
+    bt = batch(name)
+    prep = TT.layout_batch(bt, BF16)
+    assert prep.variant == "mma" and prep.device == torch.device("cpu")
+    assert (prep.af, prep.ap, prep.cf, prep.cp) == (None,) * 4
+    assert {t.dtype for t in prep.mma[:4]} == {BF16}
+    ref = layout(bt)
+    assert all(torch.equal(a, b) for a, b in zip(prep.mma[:4], ref[:4]))
+    assert prep.dims == ref.dims == (bt.anchor_feat.shape[0],
+                                     bt.contrast_feat.shape[0],
+                                     bt.anchor_feat.shape[1],
+                                     bt.anchor_prob.shape[1])
+    f32 = TT.layout_batch(bt, torch.float32)
+    assert f32.variant == "fma" and f32.mma is None
+    assert {t.dtype for t in (f32.af, f32.ap, f32.cf, f32.cp)} == {
+        torch.float32}
 
 
 def test_prepare_takes_no_cpu_batch_in_either_mode():

@@ -39,20 +39,34 @@
 // count works; a warp-shuffle + shared-memory block reduction writes one
 // partial per block and term, which the wrapper sums.
 //
-// Backward (`fused_loss_bwd_kernel`). Bound: operations (the same
-// recomputation, about four times over). The gradient goes to the low-res
-// logits, so many output pixels add into one source pixel. To keep the fold
-// deterministic without float atomics the scatter is turned into a gather:
-// one block per source pixel (b, i, j) walks the output pixels that tap it
-// -- the contiguous row range [ylo[i], yhi[i]) and column range
-// [xlo[j], xhi[j]) that the host derives from the tap tables, clamped edge
-// taps included -- recomputes each pixel's softmax terms, weights the
-// analytic gradient by the pixel's bilinear weight onto (i, j) (both taps of
-// a clamped edge add), accumulates per class in a per-thread array and
-// reduces the block per class in a fixed order. Each output pixel is
-// recomputed by the (up to) four source pixels it taps. The per-thread
-// accumulator is indexed by class at run time, so it lives in local memory
-// (up to MAX_CLASSES floats).
+// Backward (`fused_loss_bwd_cells_kernel`, then `fused_loss_fold_kernel`).
+// Bound: operations, the forward's exps at the special function units' rate
+// (the gradient terms are the sums' exps times the subsets' reciprocals).
+// This design spends more: per output pixel the softmax terms once, then
+// ~3 exp per class again for the gradient rather than keep 32 pixels' exps,
+// and 4 fused multiply-adds per class to fold it.
+// The gradient goes to the low-res logits, so many output pixels add into
+// one source pixel; the fold must stay deterministic without float atomics
+// and must not recompute a pixel once per source pixel it taps.
+//  * Cells. The host cuts the output into cells: maximal rectangles of
+//    pixels whose four taps read the same 2x2 source pixels (16 x 16 pixels
+//    at scale 16, other sizes at the clamped edges and at non-integer
+//    ratios), from the same tap tables as the forward.
+//  * One warp per cell. It copies the cell's 2x2 source pixels of z and tz
+//    into shared memory once. In batches of 32 pixels, each lane computes
+//    one pixel's softmax terms (maxima and sums of every log-sum-exp
+//    subset, two passes over the classes, all lanes reading the same class
+//    at once: broadcasts) and leaves them in shared memory; then each lane
+//    takes one class (classes beyond 32 in further rounds) and walks the
+//    batch's pixels in order, forming the analytic gradient of the pixel
+//    and class once and adding it, times the pixel's bilinear weight wy*wx,
+//    onto the cell's 4 corners. A lane's 4 corner sums of its class live in
+//    registers during a batch and in shared memory between batches: no
+//    array indexed at run time, no reduction across lanes.
+//  * Each cell writes its (2, 2, C) partial sums. The fold kernel adds, for
+//    each low-res (pixel, class), the <= 3 x 3 corners that land on it,
+//    both corners of a clamped edge included, in the fixed order of the
+//    host's feed tables. Two launches, the same bits every run.
 //
 // C interface (ctypes): each entry returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for an argument the kernels do not take.
@@ -61,15 +75,12 @@
 #include <math.h>
 #include <stdint.h>
 
-#define MAX_CLASSES 256
-
 namespace {
 
 enum { CE_PLAIN = 0, CE_UNCE = 1 };
 enum { KD_NONE = 0, KD_KD = 1, KD_UNKD = 2 };
 constexpr int IGNORE = 255;
 constexpr int FWD_THREADS = 128;
-constexpr int BWD_THREADS = 256;
 
 // The four source pixels of one output pixel and their weights, in the
 // form of torch.nn.functional.interpolate(bilinear, align_corners=False):
@@ -241,99 +252,215 @@ __global__ void __launch_bounds__(FWD_THREADS)
   }
 }
 
+constexpr int CELL_WARPS = 4;  // cells (warps) per block of the backward
+constexpr int BATCH_PX = 32;   // pixels whose terms a warp holds at once
+constexpr int NSTAT = 16;      // floats of one pixel's terms
+// sm_90's opt-in dynamic shared memory per block: the backward's only limit
+// on the class count (each warp holds its cell's corners and sums)
+constexpr int64_t MAX_SHARED = 227 * 1024;
+
+// One pixel's terms as the gradient walk reads them (shared memory, 16
+// floats, read as four float4 broadcasts).
+enum {
+  T_HY, T_LY, T_HX, T_LX,       // bilinear weights
+  T_M_ALL, T_INV_ALL,           // max and 1 / sum of exp over all classes
+  T_W_CE, T_SAFE,               // CE scale (0 for label 255); label' bits
+  T_M_OLD, T_INV_OLD,           // classes < old_cl (unce)
+  T_M_SUB, T_INV_SUB,           // the KD subset of z
+  T_M_T, T_INV_T,               // alpha * tz over its Co classes
+  T_LAM0, T_UNUSED              // softmax(alpha * tz)_0
+};
+
+// z at (pixel weights, class c) from the cell's 2x2 source values of
+// class c: the same arithmetic as `up`, so both walks see the same bits
+__device__ __forceinline__ float lerp4(const float* v, int C, int c, float hy,
+                                       float ly, float hx, float lx) {
+  return hy * (hx * v[c] + lx * v[C + c]) +
+         ly * (hx * v[2 * C + c] + lx * v[3 * C + c]);
+}
+
+// The softmax terms of one output pixel into `out` (NSTAT floats).
+template <int CE, int KD>
+__device__ __forceinline__ void pixel_terms(const float* zs, const float* ts,
+                                            int C, int Co, int old_cl,
+                                            float alpha, int safe, float w_ce,
+                                            float hy, float ly, float hx,
+                                            float lx, float* out) {
+  float m_all = -INFINITY, m_old = -INFINITY, m_sub = -INFINITY,
+        m_t = -INFINITY;
+  for (int c = 0; c < C; ++c) {
+    const float v = lerp4(zs, C, c, hy, ly, hx, lx);
+    m_all = fmaxf(m_all, v);
+    if (CE == CE_UNCE && c < old_cl) m_old = fmaxf(m_old, v);
+    if (KD != KD_NONE && in_sub<KD>(c, Co)) m_sub = fmaxf(m_sub, v);
+  }
+  if (KD != KD_NONE)
+    for (int c = 0; c < Co; ++c)
+      m_t = fmaxf(m_t, alpha * lerp4(ts, Co, c, hy, ly, hx, lx));
+  float s_all = 0.0f, s_old = 0.0f, s_sub = 0.0f, s_t = 0.0f, e_t0 = 0.0f;
+  for (int c = 0; c < C; ++c) {
+    const float v = lerp4(zs, C, c, hy, ly, hx, lx);
+    s_all += expf(v - m_all);
+    if (CE == CE_UNCE && c < old_cl) s_old += expf(v - m_old);
+    if (KD != KD_NONE && in_sub<KD>(c, Co)) s_sub += expf(v - m_sub);
+  }
+  if (KD != KD_NONE)
+    for (int c = 0; c < Co; ++c) {
+      const float e = expf(alpha * lerp4(ts, Co, c, hy, ly, hx, lx) - m_t);
+      s_t += e;
+      if (c == 0) e_t0 = e;
+    }
+  const float inv_t = KD != KD_NONE ? 1.0f / s_t : 0.0f;
+  float4* o = reinterpret_cast<float4*>(out);
+  o[0] = make_float4(hy, ly, hx, lx);
+  o[1] = make_float4(m_all, 1.0f / s_all, w_ce, __int_as_float(safe));
+  o[2] = make_float4(m_old, CE == CE_UNCE ? 1.0f / s_old : 0.0f, m_sub,
+                     KD != KD_NONE ? 1.0f / s_sub : 0.0f);
+  o[3] = make_float4(m_t, inv_t, e_t0 * inv_t, 0.0f);
+}
+
+// The backward's first kernel: one warp per cell (b, cy, cx) writes the
+// cell's gradient folded onto its 2x2 source pixels, part[cell][2r+s][c].
+// ycells / xcells: (first output, end, source of tap 0, of tap 1) per cell.
 template <int CE, int KD, typename L>
-__global__ void __launch_bounds__(BWD_THREADS)
-    fused_loss_bwd_kernel(const float* __restrict__ z,
-                          const float* __restrict__ tz,
-                          const L* __restrict__ labels,
-                          const int32_t* __restrict__ iy0,
-                          const int32_t* __restrict__ iy1,
-                          const float* __restrict__ fy,
-                          const int32_t* __restrict__ ix0,
-                          const int32_t* __restrict__ ix1,
-                          const float* __restrict__ fx,
-                          const int32_t* __restrict__ ylo,
-                          const int32_t* __restrict__ yhi,
-                          const int32_t* __restrict__ xlo,
-                          const int32_t* __restrict__ xhi,
-                          const float* __restrict__ coefs,
-                          float* __restrict__ dz, int h, int w, int C, int Co,
-                          int H, int W, int old_cl, float alpha) {
-  const int j = blockIdx.x, i = blockIdx.y, b = blockIdx.z;
+__global__ void __launch_bounds__(CELL_WARPS * 32)
+    fused_loss_bwd_cells_kernel(const float* __restrict__ z,
+                                const float* __restrict__ tz,
+                                const L* __restrict__ labels,
+                                const float* __restrict__ fy,
+                                const float* __restrict__ fx,
+                                const int4* __restrict__ ycells,
+                                const int4* __restrict__ xcells,
+                                const float* __restrict__ coefs,
+                                float* __restrict__ part, int n_cells, int h,
+                                int w, int C, int Co, int H, int W, int old_cl,
+                                float alpha, int ncy, int ncx) {
+  extern __shared__ __align__(16) float smem[];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cell = blockIdx.x * CELL_WARPS + warp;
+  if (cell >= n_cells) return;  // the whole warp; nothing below syncs blocks
+  // this warp's shared memory: [z corners][tz corners][sums][pixel terms]
+  float* zs = smem + (int64_t)warp * (8 * C + 4 * Co + BATCH_PX * NSTAT);
+  float* ts = zs + 4 * C;
+  float* acc = ts + 4 * Co;
+  float* terms = acc + 4 * C;
+  const int b = cell / (ncy * ncx);
+  const int4 yc = ycells[(cell / ncx) % ncy], xc = xcells[cell % ncx];
+  // corner k = 2 r + s is source pixel (tap r of the rows, tap s of the
+  // columns): (yc.z | yc.w, xc.z | xc.w)
+  for (int i = lane; i < 4 * C; i += 32) {
+    const int k = i / C, c = i - k * C;
+    const int row = k & 2 ? yc.w : yc.z, col = k & 1 ? xc.w : xc.z;
+    zs[i] = __ldg(z + (((int64_t)b * h + row) * w + col) * C + c);
+    acc[i] = 0.0f;
+  }
+  if (KD != KD_NONE)
+    for (int i = lane; i < 4 * Co; i += 32) {
+      const int k = i / Co, c = i - k * Co;
+      const int row = k & 2 ? yc.w : yc.z, col = k & 1 ? xc.w : xc.z;
+      ts[i] = __ldg(tz + (((int64_t)b * h + row) * w + col) * Co + c);
+    }
+  __syncwarp();
   const float coef_ce = coefs[0], coef_kd = coefs[1];
-  const int y_begin = ylo[i], ny = yhi[i] - y_begin;
-  const int x_begin = xlo[j], nx = xhi[j] - x_begin;
+  const int nx = xc.y - xc.x, n = (yc.y - yc.x) * nx;
 
-  float acc[MAX_CLASSES];
-  for (int c = 0; c < C; ++c) acc[c] = 0.0f;
-
-  for (int p = threadIdx.x; p < ny * nx; p += BWD_THREADS) {
-    const int y = y_begin + p / nx;
-    const int x = x_begin + p % nx;
-    const int y0 = iy0[y], y1 = iy1[y], x0 = ix0[x], x1 = ix1[x];
-    const float ly = fy[y], lx = fx[x];
-    // this pixel's bilinear weight onto source (i, j); both taps of a
-    // clamped edge land on the same source and add
-    const float wy = (y0 == i ? 1.0f - ly : 0.0f) + (y1 == i ? ly : 0.0f);
-    const float wx = (x0 == j ? 1.0f - lx : 0.0f) + (x1 == j ? lx : 0.0f);
-    const float wt = wy * wx;
-    if (wt == 0.0f) continue;
-
-    const Taps zt = make_taps(z, b, h, w, C, y0, y1, ly, x0, x1, lx);
-    Taps tt = zt;
-    if (KD != KD_NONE) tt = make_taps(tz, b, h, w, Co, y0, y1, ly, x0, x1, lx);
-    bool valid;
-    const int lab = (int)labels[((int64_t)b * H + y) * W + x];
-    const int safe = safe_label<CE>(lab, old_cl, C, &valid);
-    const Stats s = pixel_stats<CE, KD>(zt, tt, C, Co, old_cl, alpha, safe);
-    const float inv_all = 1.0f / s.s_all;
-    const float inv_old = CE == CE_UNCE ? 1.0f / s.s_old : 0.0f;
-    const float inv_sub = KD != KD_NONE ? 1.0f / s.s_sub : 0.0f;
-    const float inv_t = KD != KD_NONE ? 1.0f / s.s_t : 0.0f;
-    const float lam0 = s.e_t0 * inv_t;
-    const float w_ce = valid ? wt * coef_ce : 0.0f;
-    const float w_kd = wt * coef_kd;
-
-    for (int c = 0; c < C; ++c) {
-      const float v = up(zt, c);
-      const float pc = expf(v - s.m_all) * inv_all;  // softmax(z)_c
-      float d_sel;
-      if (CE == CE_UNCE && safe == 0)
-        d_sel = c < old_cl ? expf(v - s.m_old) * inv_old : 0.0f;
-      else
-        d_sel = c == safe ? 1.0f : 0.0f;
-      float g = w_ce * (pc - d_sel);
-      if (KD != KD_NONE) {
-        const float sub =
-            in_sub<KD>(c, Co) ? expf(v - s.m_sub) * inv_sub : 0.0f;
-        const float lam =
-            c < Co ? expf(alpha * up(tt, c) - s.m_t) * inv_t : 0.0f;
-        float g_kd;
-        if (KD == KD_UNKD)
-          g_kd = lam0 * sub + (c >= 1 ? lam : 0.0f) - pc;
-        else
-          g_kd = lam - sub;
-        g += w_kd * g_kd;
+  for (int p0 = 0; p0 < n; p0 += BATCH_PX) {
+    // (a) lane i: the terms of pixel p0 + i
+    const int p = p0 + lane;
+    if (p < n) {
+      const int y = yc.x + p / nx, x = xc.x + p % nx;
+      const float ly = fy[y], lx = fx[x];
+      bool valid;
+      const int safe = safe_label<CE>(
+          (int)labels[((int64_t)b * H + y) * W + x], old_cl, C, &valid);
+      pixel_terms<CE, KD>(zs, ts, C, Co, old_cl, alpha, safe,
+                          valid ? coef_ce : 0.0f, 1.0f - ly, ly, 1.0f - lx,
+                          lx, terms + lane * NSTAT);
+    }
+    __syncwarp();
+    // (b) lane i: class c0 + i over the batch's pixels, in order
+    const int np = min(BATCH_PX, n - p0);
+    for (int c0 = 0; c0 < C; c0 += 32) {
+      const int c = c0 + lane;
+      const bool on = c < C, on_t = KD != KD_NONE && c < Co;
+      float zv[4], tv[4], a[4];
+#pragma unroll
+      for (int k = 0; k < 4; ++k) {
+        zv[k] = on ? zs[k * C + c] : 0.0f;
+        tv[k] = on_t ? ts[k * Co + c] : 0.0f;
+        a[k] = on ? acc[k * C + c] : 0.0f;
       }
-      acc[c] += g;
+#pragma unroll 2
+      for (int i = 0; i < np; ++i) {
+        const float4* tp = reinterpret_cast<const float4*>(terms + i * NSTAT);
+        const float4 wts = tp[0], t1 = tp[1], t2 = tp[2], t3 = tp[3];
+        const float hy = wts.x, ly = wts.y, hx = wts.z, lx = wts.w;
+        const float v =
+            hy * (hx * zv[0] + lx * zv[1]) + ly * (hx * zv[2] + lx * zv[3]);
+        const float pc = expf(v - t1.x) * t1.y;  // softmax(z)_c
+        const int safe = __float_as_int(t1.w);
+        float d_sel;
+        if (CE == CE_UNCE && safe == 0)  // the same for the whole warp
+          d_sel = c < old_cl ? expf(v - t2.x) * t2.y : 0.0f;
+        else
+          d_sel = c == safe ? 1.0f : 0.0f;
+        float g = t1.z * (pc - d_sel);
+        if (KD != KD_NONE) {
+          const float sub = in_sub<KD>(c, Co) ? expf(v - t2.z) * t2.w : 0.0f;
+          const float u =
+              hy * (hx * tv[0] + lx * tv[1]) + ly * (hx * tv[2] + lx * tv[3]);
+          const float lam = c < Co ? expf(alpha * u - t3.x) * t3.y : 0.0f;
+          const float g_kd = KD == KD_UNKD
+                                 ? t3.z * sub + (c >= 1 ? lam : 0.0f) - pc
+                                 : lam - sub;
+          g += coef_kd * g_kd;
+        }
+        a[0] += hy * hx * g;
+        a[1] += hy * lx * g;
+        a[2] += ly * hx * g;
+        a[3] += ly * lx * g;
+      }
+      if (on)
+#pragma unroll
+        for (int k = 0; k < 4; ++k) acc[k * C + c] = a[k];
+    }
+    __syncwarp();  // the terms are used up; the sums are in place
+  }
+  float* out = part + (int64_t)cell * 4 * C;
+  for (int i = lane; i < 4 * C; i += 32) out[i] = acc[i];
+}
+
+// The backward's second kernel: one thread per low-res (b, i, j, c) adds
+// the corners of the cells that land on it, rows' feeds outer, columns'
+// inner, each in increasing order; feeds are 2 * cell + tap, -1 for none.
+__global__ void __launch_bounds__(256)
+    fused_loss_fold_kernel(const float* __restrict__ part,
+                           const int32_t* __restrict__ yfeeds,
+                           const int32_t* __restrict__ xfeeds,
+                           float* __restrict__ dz, int64_t total, int h, int w,
+                           int C, int ncy, int ncx) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int c = (int)(idx % C);
+  int64_t rest = idx / C;
+  const int j = (int)(rest % w);
+  rest /= w;
+  const int i = (int)(rest % h);
+  const int64_t b = rest / h;
+  float sum = 0.0f;
+#pragma unroll
+  for (int e = 0; e < 3; ++e) {
+    const int fy_ = yfeeds[i * 3 + e];
+    if (fy_ < 0) continue;
+#pragma unroll
+    for (int f = 0; f < 3; ++f) {
+      const int fx_ = xfeeds[j * 3 + f];
+      if (fx_ < 0) continue;
+      const int64_t cell = (b * ncy + (fy_ >> 1)) * ncx + (fx_ >> 1);
+      sum += part[(cell * 4 + (fy_ & 1) * 2 + (fx_ & 1)) * C + c];
     }
   }
-
-  // block reduction per class in a fixed order: shuffles inside each warp,
-  // then the warps' sums added in warp order
-  __shared__ float sm[BWD_THREADS / 32][MAX_CLASSES];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  for (int c = 0; c < C; ++c) {
-    const float v = warp_sum(acc[c]);
-    if (lane == 0) sm[warp][c] = v;
-  }
-  __syncthreads();
-  float* out = dz + (((int64_t)b * h + i) * w + j) * C;
-  for (int c = threadIdx.x; c < C; c += BWD_THREADS) {
-    float v = 0.0f;
-    for (int k = 0; k < BWD_THREADS / 32; ++k) v += sm[k][c];
-    out[c] = v;
-  }
+  dz[idx] = sum;
 }
 
 struct Args {
@@ -357,15 +484,47 @@ void launch_fwd(const Args& a, float* ce_part, float* kd_part) {
       ce_part, kd_part, a.h, a.w, a.C, a.Co, a.H, a.W, a.old_cl, a.alpha);
 }
 
+struct Cells {
+  const int4 *ycells, *xcells;
+  const int32_t *yfeeds, *xfeeds;
+  int ncy, ncx;
+};
+
 template <int CE, int KD, typename L>
-void launch_bwd(const Args& a, const int32_t* ylo, const int32_t* yhi,
-                const int32_t* xlo, const int32_t* xhi, const float* coefs,
-                float* dz) {
-  const dim3 grid(a.w, a.h, a.B);
-  fused_loss_bwd_kernel<CE, KD, L><<<grid, BWD_THREADS, 0, a.stream>>>(
-      a.z, a.tz, (const L*)a.labels, a.iy0, a.iy1, a.fy, a.ix0, a.ix1, a.fx,
-      ylo, yhi, xlo, xhi, coefs, dz, a.h, a.w, a.C, a.Co, a.H, a.W, a.old_cl,
-      a.alpha);
+void launch_bwd(const Args& a, const Cells& cl, const float* coefs,
+                float* part, float* dz, int* err) {
+  const int n_cells = a.B * cl.ncy * cl.ncx;
+  const int64_t smem_bytes = CELL_WARPS *
+                             (8 * (int64_t)a.C + 4 * a.Co + BATCH_PX * NSTAT) *
+                             sizeof(float);
+  if (smem_bytes > MAX_SHARED) {
+    *err = (int)cudaErrorInvalidValue;
+    return;
+  }
+  const int smem = (int)smem_bytes;
+  auto kernel = fused_loss_bwd_cells_kernel<CE, KD, L>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (e != cudaSuccess) {
+      *err = (int)e;
+      return;
+    }
+  }
+  kernel<<<(n_cells + CELL_WARPS - 1) / CELL_WARPS, CELL_WARPS * 32, smem,
+           a.stream>>>(a.z, a.tz, (const L*)a.labels, a.fy, a.fx, cl.ycells,
+                       cl.xcells, coefs, part, n_cells, a.h, a.w, a.C, a.Co,
+                       a.H, a.W, a.old_cl, a.alpha, cl.ncy, cl.ncx);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) {
+    *err = (int)e;
+    return;
+  }
+  const int64_t total = (int64_t)a.B * a.h * a.w * a.C;
+  fused_loss_fold_kernel<<<(unsigned)((total + 255) / 256), 256, 0,
+                           a.stream>>>(part, cl.yfeeds, cl.xfeeds, dz, total,
+                                       a.h, a.w, a.C, cl.ncy, cl.ncx);
+  *err = (int)cudaGetLastError();
 }
 
 // run `F<CE, KD, L>` for the run-time (ce_mode, kd_mode, label type)
@@ -382,7 +541,7 @@ void launch_bwd(const Args& a, const int32_t* ylo, const int32_t* yhi,
 bool args_ok(const Args& a, int ce_mode, int kd_mode, int label_bytes) {
   if (ce_mode < 0 || ce_mode > 1 || kd_mode < 0 || kd_mode > 2) return false;
   if (label_bytes != 1 && label_bytes != 4) return false;
-  if (a.C < 1 || a.C > MAX_CLASSES) return false;
+  if (a.C < 1) return false;
   if (ce_mode == CE_UNCE && (a.old_cl < 1 || a.old_cl > a.C)) return false;
   if (kd_mode != KD_NONE && (a.Co < 1 || a.Co > a.C)) return false;
   if (a.B < 1 || a.B > 65535 || a.H < 1 || a.H > 65535 || a.h < 1 ||
@@ -419,13 +578,16 @@ extern "C" int ucd_fused_loss_fwd(
   return (int)cudaGetLastError();
 }
 
+// ycells / xcells (ncy, 4) / (ncx, 4) int32 and yfeeds / xfeeds (h, 3) /
+// (w, 3) int32: the host's cell tables (ops/fused_loss.py `cells`); part:
+// float32 scratch of B * ncy * ncx * 4 * C; dz (B, h, w, C) float32.
 extern "C" int ucd_fused_loss_bwd(
     const void* z, const void* tz, const void* labels, int label_bytes,
     const void* iy0, const void* iy1, const void* fy, const void* ix0,
-    const void* ix1, const void* fx, const void* ylo, const void* yhi,
-    const void* xlo, const void* xhi, const void* coefs, void* dz, int B,
-    int h, int w, int C, int Co, int H, int W, int old_cl, int ce_mode,
-    int kd_mode, float alpha, void* stream) {
+    const void* ix1, const void* fx, const void* ycells, const void* yfeeds,
+    const void* xcells, const void* xfeeds, const void* coefs, void* part,
+    void* dz, int B, int h, int w, int C, int Co, int H, int W, int old_cl,
+    int ce_mode, int kd_mode, int ncy, int ncx, float alpha, void* stream) {
   const Args a = {(const float*)z,     (const float*)tz,
                   labels,              (const int32_t*)iy0,
                   (const int32_t*)iy1, (const float*)fy,
@@ -436,16 +598,19 @@ extern "C" int ucd_fused_loss_bwd(
                   H,                   W,
                   old_cl,              alpha,
                   (cudaStream_t)stream};
-  if (!args_ok(a, ce_mode, kd_mode, label_bytes))
+  if (!args_ok(a, ce_mode, kd_mode, label_bytes) || ncy < 1 || ncx < 1 ||
+      (int64_t)B * ncy * ncx > ((int64_t)1 << 30))
     return (int)cudaErrorInvalidValue;
+  const Cells cl = {(const int4*)ycells,    (const int4*)xcells,
+                    (const int32_t*)yfeeds, (const int32_t*)xfeeds,
+                    ncy,                    ncx};
+  int err = 0;
   if (label_bytes == 1) {
-    DISPATCH_MODES(launch_bwd, uint8_t, a, (const int32_t*)ylo,
-                   (const int32_t*)yhi, (const int32_t*)xlo,
-                   (const int32_t*)xhi, (const float*)coefs, (float*)dz)
+    DISPATCH_MODES(launch_bwd, uint8_t, a, cl, (const float*)coefs,
+                   (float*)part, (float*)dz, &err)
   } else {
-    DISPATCH_MODES(launch_bwd, int32_t, a, (const int32_t*)ylo,
-                   (const int32_t*)yhi, (const int32_t*)xlo,
-                   (const int32_t*)xhi, (const float*)coefs, (float*)dz)
+    DISPATCH_MODES(launch_bwd, int32_t, a, cl, (const float*)coefs,
+                   (float*)part, (float*)dz, &err)
   }
-  return (int)cudaGetLastError();
+  return err;
 }

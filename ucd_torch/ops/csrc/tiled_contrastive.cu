@@ -27,7 +27,7 @@
 //
 // Two variants, chosen by the wrapper from the compute mode alone:
 //
-//  * f32 mode, and pass 1 in both modes: the f32-FMA kernels of this file.
+//  * f32 mode: the f32-FMA kernels of this file.
 //    Every product is true f32 FMAs (never TF32). One block of 256 threads
 //    owns a tile of 64 anchors and walks all contrast tiles (64 slots each)
 //    itself, so neg / num / S / G and the dA tile stay in registers for the
@@ -43,15 +43,13 @@
 //    validity bits, so no padded copy of any input is made. The backward
 //    stages the pair tile dL/dadc through shared memory ([slot][anchor]) and
 //    contracts it with the contrast features again, a 64 x 256 slice of dA
-//    per block (64 accumulators per thread; blockIdx.y walks wider D). Pass 1
-//    in bf16 mode is these FMAs on bf16 values the wrapper widened to f32
-//    again (a bf16 x bf16 product is exact in f32).
+//    per block (64 accumulators per thread; blockIdx.y walks wider D).
 //
-//  * bf16 mode, pass 2 and the backward: the tensor-core kernels of
-//    tiled_contrastive_mma.cuh (`mma.sync` on 2-byte operands, the anchor
-//    tile resident in shared memory, a `cp.async` ring of contrast tiles,
-//    dL/dadc handed from the first product's accumulators to the second
-//    product's A fragments in registers); its header has the design.
+//  * bf16 mode: the tensor-core kernels of tiled_contrastive_mma.cuh
+//    (`mma.sync` on 2-byte operands, the anchor tile resident in shared
+//    memory, a `cp.async` ring of contrast tiles, dL/dadc handed from the
+//    first product's accumulators to the second product's A fragments in
+//    registers); its header has the design.
 //
 // C interface (ctypes): each entry returns cudaGetLastError() after the
 // launch, or cudaErrorInvalidValue for an argument the kernels do not take.
@@ -424,10 +422,9 @@ Args make_args(const void* af, const void* ap, const void* cf, const void* cp,
 }  // namespace
 
 // The f32-FMA kernels. Features af (P, D), cf (M, D) and probabilities ap
-// (P, C), cp (M, C) are float32, row-major (pass 1 in bf16 mode: bf16 values
-// widened to float32); la / lc
-// int32 labels, av / cv / an / cn one byte per slot (validity, GT-new); neg,
-// num, s, g, coef (P,) and da (P, D) float32.
+// (P, C), cp (M, C) are float32, row-major; la / lc int32 labels, av / cv /
+// an / cn one byte per slot (validity, GT-new); neg, num, s, g, coef (P,)
+// and da (P, D) float32.
 
 extern "C" int ucd_contrastive_pass1(
     const void* af, const void* cf, const void* la, const void* av,
@@ -484,7 +481,8 @@ bool aligned16(const void* p) { return ((uintptr_t)p & 15u) == 0; }
 // Operands of the tensor-core kernels, or stages = 0 for arguments they do
 // not take. af / ap / cf / cp are bf16, zero-padded by the wrapper: P to a
 // multiple of `tile_a`, M of 64, D and C of 16; every slot array padded
-// alike (padded slots invalid) and 16-byte aligned for cp.async.
+// alike (padded slots invalid) and 16-byte aligned for cp.async. C = 0 with
+// null ap / cp: no probabilities (pass 1).
 mma::Operands mma_operands(const void* af, const void* ap, const void* cf,
                            const void* cp, const void* la, const void* av,
                            const void* an, const void* lc, const void* cv,
@@ -504,9 +502,9 @@ mma::Operands mma_operands(const void* af, const void* ap, const void* cf,
   t.tau = tau;
   t.stages = 0;
   t.tiles_per_part = 0;
-  if (P < 1 || M < 1 || D < 1 || C < 1 || !(tau > 0.0f) || parts < 1 ||
+  if (P < 1 || M < 1 || D < 1 || C < 0 || !(tau > 0.0f) || parts < 1 ||
       parts > 65535 || stages < 2 || stages > 4 || P % tile_a || M % mma::TC ||
-      D % 16 || C % 16)
+      D % 16 || C % 16 || (C == 0) != (ap == nullptr && cp == nullptr))
     return t;
   if (!(aligned16(af) && aligned16(ap) && aligned16(cf) && aligned16(cp) &&
         aligned16(lc) && aligned16(cv) && aligned16(cn)))
@@ -535,6 +533,27 @@ int launch_mma(Kernel kernel, dim3 grid, int threads, const mma::Operands& t,
 
 }  // namespace
 
+// Pass 1 on the tensor cores. neg, num: float32 (parts, P), one row of
+// partial sums per part of the walk over M. tile_a: anchors per block, 128
+// (8 warps) or 256 (16 warps).
+extern "C" int ucd_contrastive_pass1_mma(
+    const void* af, const void* cf, const void* la, const void* av,
+    const void* an, const void* lc, const void* cv, const void* cn, void* neg,
+    void* num, int P, int M, int D, float tau, int parts, int stages,
+    int tile_a, void* stream) {
+  if (tile_a != 128 && tile_a != 256) return (int)cudaErrorInvalidValue;
+  const mma::Operands t =
+      mma_operands(af, nullptr, cf, nullptr, la, av, an, lc, cv, cn, P, M, D,
+                   0, tau, parts, stages, tile_a);
+  if (!t.stages) return (int)cudaErrorInvalidValue;
+  const dim3 grid(P / tile_a, parts);
+  if (tile_a == 128)
+    return launch_mma(mma::contrastive_pass1_mma_kernel<8>, grid, 256, t,
+                      tile_a, stream, (float*)neg, (float*)num);
+  return launch_mma(mma::contrastive_pass1_mma_kernel<16>, grid, 512, t,
+                    tile_a, stream, (float*)neg, (float*)num);
+}
+
 // Pass 2 on the tensor cores. s, g: float32 (parts, P), one row of partial
 // sums per part of the walk over M; neg float32 (P,). tile_a: anchors per
 // block, 128 (8 warps) or 256 (16 warps).
@@ -544,7 +563,8 @@ extern "C" int ucd_contrastive_pass2_mma(
     const void* cv, const void* cn, const void* neg, void* s, void* g, int P,
     int M, int D, int C, float tau, int parts, int stages, int tile_a,
     void* stream) {
-  if (tile_a != 128 && tile_a != 256) return (int)cudaErrorInvalidValue;
+  if ((tile_a != 128 && tile_a != 256) || C < 1)
+    return (int)cudaErrorInvalidValue;
   const mma::Operands t = mma_operands(af, ap, cf, cp, la, av, an, lc, cv, cn,
                                        P, M, D, C, tau, parts, stages, tile_a);
   if (!t.stages) return (int)cudaErrorInvalidValue;
@@ -567,7 +587,7 @@ extern "C" int ucd_contrastive_bwd_mma(
     const void* cv, const void* cn, const void* neg, const void* g,
     const void* coef, void* da, int P, int M, int D, int C, float tau,
     int parts, int stages, int tile_a, int known_depth, void* stream) {
-  if (tile_a != 128) return (int)cudaErrorInvalidValue;
+  if (tile_a != 128 || C < 1) return (int)cudaErrorInvalidValue;
   const mma::Operands t = mma_operands(af, ap, cf, cp, la, av, an, lc, cv, cn,
                                        P, M, D, C, tau, parts, stages, tile_a);
   const int slices = (D + mma::DB - 1) / mma::DB;

@@ -11,7 +11,8 @@ ops.losses.{knowledge_distillation | unbiased_knowledge_distillation}
 (reduction='mean').
 
 On CUDA tensors the forward launches `fused_loss_fwd_kernel` and the
-backward `fused_loss_bwd_kernel` of `csrc/fused_loss.cu` (or raises); on CPU
+backward `fused_loss_bwd_cells_kernel` + `fused_loss_fold_kernel` of
+`csrc/fused_loss.cu` (or raises); on CPU
 tensors `fused_ce_kd` is `fused_ce_kd_plain`, the same function in plain
 PyTorch, differentiated by autograd.
 
@@ -22,9 +23,12 @@ Kernel notes (details in the source):
     pixel, two passes over the classes (each masked log-sum-exp has its own
     max), block-reduced partial sums that this wrapper adds up.
   * backward: replaces ucd_tpu/ops/fused_loss.py::_grad_kernel. Bound by
-    operations. One block per low-res pixel gathers the output pixels that
-    tap it (host-computed contiguous ranges), so the fold onto the low-res
-    grid needs no atomics and is bit-reproducible.
+    operations. The output is cut into cells (`cells`: maximal rectangles
+    of pixels whose taps read the same 2x2 source pixels); one warp per
+    cell computes each pixel's softmax terms and gradient once and folds
+    the cell onto its 4 corners; a second kernel adds, per low-res pixel,
+    the corners that land on it in a fixed order. No atomics, the same bits
+    every run.
 
 Gradient flows to the new logits only (the donor is frozen); both
 cotangents are honoured separately.
@@ -47,7 +51,6 @@ from . import losses as L
 from .fused_eval import taps, taps_on
 
 KERNEL = "fused_loss"
-MAX_CLASSES = 256          # per-thread accumulator size of the backward
 CE_MODES = {"ce": 0, "unce": 1}
 KD_MODES = {"none": 0, "kd": 1, "unkd": 2}
 _count_lock = threading.Lock()
@@ -130,34 +133,62 @@ def _check_modes(C, Co, old_cl, ce_mode, kd_mode):
 # the kernels' wrapper
 # ---------------------------------------------------------------------------
 
+MAX_FEEDS = 3  # (cell, tap) pairs that can land on one source index
+# the cell kernel's block in fused_loss.cu: CELL_WARPS cells, BATCH_PX
+# pixels' terms of NSTAT floats each, and sm_90's opt-in shared memory
+CELL_WARPS, BATCH_PX, NSTAT = 4, 32, 16
+MAX_SHARED = 227 * 1024
+
+
+def bwd_shared_bytes(C: int, Co: int) -> int:
+    """Shared memory of one block of the backward's cell kernel: per warp
+    its cell's 2x2 corners of z and tz, the corner sums of its C classes
+    and one batch of pixel terms. The only limit on the class count: the
+    forward keeps nothing per class."""
+    return CELL_WARPS * (8 * C + 4 * Co + BATCH_PX * NSTAT) * 4
+
+
 @functools.lru_cache(maxsize=64)
-def tap_ranges(n_in: int, n_out: int, identity: bool = False):
-    """For each source index i, the contiguous range [lo[i], hi[i]) of
-    output indices that read it through either tap of `taps(n_in, n_out)`,
-    clamped edge taps included."""
+def cells(n_in: int, n_out: int, identity: bool = False):
+    """The backward kernel's 1-D cells of `taps(n_in, n_out, identity)`:
+    maximal runs of consecutive outputs whose two taps read the same two
+    source indices (at scale 16, 16 outputs; the clamped edges make
+    longer and shorter runs). The 2-D cells are their products.
+
+    Returns (table, feeds). table (n_cells, 4) int32: first output, end,
+    source index of tap 0, of tap 1. feeds (n_in, MAX_FEEDS) int32: the
+    (cell, tap) pairs that land on each source index, as 2 * cell + tap, in
+    increasing order, -1 where there are fewer: the order in which the fold
+    adds a source's partial sums (both taps of a clamped edge land on one
+    source and add)."""
     i0, i1, _ = taps(n_in, n_out, identity)
-    o = np.arange(n_out, dtype=np.int64)
-    lo = np.full(n_in, n_out, np.int64)
-    hi = np.zeros(n_in, np.int64)
-    for idx in (i0, i1):
-        np.minimum.at(lo, idx, o)
-        np.maximum.at(hi, idx, o + 1)
-    lo = np.minimum(lo, hi)  # an untapped source gets an empty range
-    return lo.astype(np.int32), hi.astype(np.int32)
+    first = np.flatnonzero(np.r_[True, (i0[1:] != i0[:-1])
+                                 | (i1[1:] != i1[:-1])])
+    end = np.r_[first[1:], n_out]
+    table = np.stack([first, end, i0[first], i1[first]], 1).astype(np.int32)
+    feeds = np.full((n_in, MAX_FEEDS), -1, np.int32)
+    n_feeds = np.zeros(n_in, np.int64)
+    for k, (_, _, src0, src1) in enumerate(table):
+        for tap, i in enumerate((src0, src1)):
+            assert n_feeds[i] < MAX_FEEDS, (n_in, n_out, i)
+            feeds[i, n_feeds[i]] = 2 * k + tap
+            n_feeds[i] += 1
+    return table, feeds
 
 
-_device_ranges: Dict[tuple, tuple] = {}
+_device_cells: Dict[tuple, tuple] = {}
 
 
-def _ranges_on(device, h: int, H: int, w: int, W: int):
+def _cells_on(device, h: int, H: int, w: int, W: int):
+    """(y table, y feeds, x table, x feeds) of `cells` on `device`,
+    uploaded once per device and shape."""
     key = (str(device), h, H, w, W)
-    if key not in _device_ranges:
+    if key not in _device_cells:
         identity = h == H and w == W
-        _device_ranges[key] = tuple(
+        _device_cells[key] = tuple(
             torch.from_numpy(a).to(device)
-            for a in (*tap_ranges(h, H, identity),
-                      *tap_ranges(w, W, identity)))
-    return _device_ranges[key]
+            for a in (*cells(h, H, identity), *cells(w, W, identity)))
+    return _device_cells[key]
 
 
 @functools.lru_cache(maxsize=None)
@@ -165,15 +196,16 @@ def _kernel_fns():
     """(forward, backward) entry points with their C signatures:
     fwd(z, tz, labels, label_bytes, 6 tap tables, ce_part, kd_part,
         B, h, w, C, Co, H, W, old_cl, ce_mode, kd_mode, alpha, stream)
-    bwd(z, tz, labels, label_bytes, 6 tap tables, 4 range tables, coefs, dz,
-        B, h, w, C, Co, H, W, old_cl, ce_mode, kd_mode, alpha, stream)."""
+    bwd(z, tz, labels, label_bytes, 6 tap tables, 4 cell tables, coefs,
+        part, dz, B, h, w, C, Co, H, W, old_cl, ce_mode, kd_mode, ncy, ncx,
+        alpha, stream)."""
     lib = build.load(KERNEL)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    tail = [i] * 10 + [ctypes.c_float, p]
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd, bwd = lib.ucd_fused_loss_fwd, lib.ucd_fused_loss_bwd
     fwd.restype = bwd.restype = ctypes.c_int
-    fwd.argtypes = [p, p, p, i] + [p] * 6 + [p, p] + tail
-    bwd.argtypes = [p, p, p, i] + [p] * 6 + [p] * 4 + [p, p] + tail
+    fwd.argtypes = [p, p, p, i] + [p] * 6 + [p, p] + [i] * 10 + [f, p]
+    bwd.argtypes = [p, p, p, i] + [p] * 6 + [p] * 4 + [p, p, p] \
+        + [i] * 12 + [f, p]
     return fwd, bwd
 
 
@@ -194,9 +226,6 @@ def _check_cuda_inputs(z, tz, labels, kd_mode):
     if not z.is_contiguous():
         raise ValueError("fused_ce_kd needs contiguous NHWC logits")
     B, h, w, C = z.shape
-    if C > MAX_CLASSES:
-        raise ValueError(f"fused_ce_kd kernels take at most {MAX_CLASSES} "
-                         f"classes, got {C}")
     if labels.ndim != 3 or labels.shape[0] != B or labels.device != z.device:
         raise ValueError(f"labels must be (B, H, W) on {z.device}, got "
                          f"{tuple(labels.shape)} on {labels.device}")
@@ -212,7 +241,7 @@ def _check_cuda_inputs(z, tz, labels, kd_mode):
 
 
 def _call(fn, z, tz, labels, H, W, extra_ptrs, old_cl, ce_mode, kd_mode,
-          alpha):
+          alpha, extra_ints=()):
     B, h, w, C = z.shape
     Co = tz.shape[-1] if tz is not None else 1
     device = z.device
@@ -223,7 +252,7 @@ def _call(fn, z, tz, labels, H, W, extra_ptrs, old_cl, ce_mode, kd_mode,
                  *(t.data_ptr() for t in taps_on(device, h, H, w, W)),
                  *(t.data_ptr() for t in extra_ptrs),
                  B, h, w, C, Co, H, W, int(old_cl), CE_MODES[ce_mode],
-                 KD_MODES[kd_mode], float(alpha), stream)
+                 KD_MODES[kd_mode], *extra_ints, float(alpha), stream)
     if err != 0:
         raise RuntimeError(f"{KERNEL} kernel launch failed: CUDA error {err}")
 
@@ -244,25 +273,35 @@ def launch_fwd(z, tz, labels, *, old_cl, ce_mode, kd_mode, alpha):
 
 
 def launch_bwd(z, tz, labels, coefs, *, old_cl, ce_mode, kd_mode, alpha):
-    """Launch the backward kernel on checked CUDA inputs. `coefs` holds the
-    per-pixel scales of the two terms' gradients, (ct_ce / n_pix,
-    -ct_kd / (Co * n_pix)), as a float32 tensor of 2 on the device.
-    Returns dz, shaped like z."""
+    """Launch the backward (its cell kernel, then its fold kernel) on
+    checked CUDA inputs. `coefs` holds the per-pixel scales of the two
+    terms' gradients, (ct_ce / n_pix, -ct_kd / (Co * n_pix)), as a float32
+    tensor of 2 on the device. Returns dz, shaped like z."""
     B, h, w, C = z.shape
     H, W = int(labels.shape[1]), int(labels.shape[2])
+    Co = tz.shape[-1] if tz is not None else 1
+    if bwd_shared_bytes(C, Co) > MAX_SHARED:
+        raise ValueError(f"the fused_ce_kd backward holds {C} + {Co} classes "
+                         f"in {bwd_shared_bytes(C, Co)} bytes of shared "
+                         f"memory a block, over the card's {MAX_SHARED}")
     _, bwd = _kernel_fns()
+    tables = _cells_on(z.device, h, H, w, W)
+    ncy, ncx = tables[0].shape[0], tables[2].shape[0]
+    # each cell's gradient folded onto its 2 x 2 corners
+    part = torch.empty(B * ncy * ncx * 4 * C, dtype=torch.float32,
+                       device=z.device)
     dz = torch.empty_like(z)
-    _call(bwd, z, tz, labels, H, W,
-          (*_ranges_on(z.device, h, H, w, W), coefs, dz), old_cl, ce_mode,
-          kd_mode, alpha)
+    _call(bwd, z, tz, labels, H, W, (*tables, coefs, part, dz), old_cl,
+          ce_mode, kd_mode, alpha, (ncy, ncx))
     with _count_lock:
         fused_ce_kd.launches_bwd += 1
     return dz
 
 
 class _FusedCeKd(torch.autograd.Function):
-    """forward -> fused_loss_fwd_kernel, backward -> fused_loss_bwd_kernel.
-    `tz` is None when kd_mode is "none" (the kernels never read it)."""
+    """forward -> fused_loss_fwd_kernel, backward -> the cell and fold
+    kernels (`launch_bwd`). `tz` is None when kd_mode is "none" (the kernels
+    never read it)."""
 
     @staticmethod
     def forward(ctx, z, tz, labels, old_cl, ce_mode, kd_mode, alpha):

@@ -34,20 +34,18 @@ fallback from one to the other:
          operands (no padding: the kernels mask the ragged edges). Bound by
          operations at the f32 rate; one block per 64 anchors walks all
          contrast tiles, every sum stays in registers.
-  "mma"  bf16 mode: pass 2 and the backward on the tensor cores
-         (`mma.sync` m16n8k16, bf16 x bf16 -> f32). They read 2-byte
-         operands that `bf16_layout` casts once and zero-pads to the
-         `mma.sync` tile shapes (rows of P to 256, rows of M to 64, D and C to
-         16; padded slots are invalid, so they change no sum). Bound by
-         operations at the bf16 tensor-core rate: the anchor tile is
-         resident in shared memory, contrast tiles arrive through a
+  "mma"  bf16 mode: pass 1, pass 2 and the backward on the tensor cores
+         (`mma.sync` m16n8k16, bf16 x bf16 -> f32, exact products). They
+         read 2-byte operands that `bf16_layout` casts once and zero-pads to
+         the `mma.sync` tile shapes (rows of P to 256, rows of M to 64, D
+         and C to 16; padded slots are invalid, so they change no sum).
+         Bound by operations at the bf16 tensor-core rate: the anchor tile
+         is resident in shared memory, contrast tiles arrive through a
          `cp.async` ring, dL/dadc goes from the first product's accumulators
          to the second product's operand in registers, and the walk over M
-         is split into parts (`m_parts`) whose partial S, G and dA the
-         wrapper adds in a fixed order (`sum_parts`), so that two runs give
-         the same bits. Pass 1 has no tensor-core variant yet: in bf16 mode
-         it runs the FMA kernel on the bf16 values widened to f32 again
-         (bf16 x bf16 is exact in f32).
+         is split into parts (`m_parts`) whose partial neg, num, S, G and dA
+         the wrapper adds in a fixed order (`sum_parts`), so that two runs
+         give the same bits.
 
 On a CUDA batch the loss launches the kernels (or raises); on a CPU batch
 it runs the plain versions (float64 stays float64 there, a test-only
@@ -175,7 +173,8 @@ def backward_coef(num: torch.Tensor, ct: torch.Tensor) -> torch.Tensor:
 # slots per ring stage, anchors per block of each kernel, the depth of one
 # `mma.sync` step, and the dynamic shared memory a block may use.
 MMA_TILE_C = 64
-MMA_TILE_A = {"pass2": (256, 128), "bwd": (128,)}  # preferred first
+MMA_TILE_A = {"pass1": (256, 128), "pass2": (256, 128),
+              "bwd": (128,)}  # preferred first
 MMA_K = 16
 MMA_SMEM_LIMIT = 232448
 MMA_MAX_STAGES = 4
@@ -183,9 +182,9 @@ MMA_MAX_PARTS = 16
 
 
 def kernel_variant(compute_dtype) -> str:
-    """Which kernels pass 2 and the backward launch on a CUDA batch: "fma"
-    (f32 FMAs) in float32 mode, "mma" (tensor cores) in bfloat16 mode.
-    Nothing else decides it, and neither gives way to the other."""
+    """Which kernels pass 1, pass 2 and the backward launch on a CUDA batch:
+    "fma" (f32 FMAs) in float32 mode, "mma" (tensor cores) in bfloat16
+    mode. Nothing else decides it, and neither gives way to the other."""
     _check_dtype(compute_dtype)
     return "mma" if compute_dtype == torch.bfloat16 else "fma"
 
@@ -245,8 +244,8 @@ def ring_stages(D: int, C: int, tile_a: int,
                 max_stages: int = MMA_MAX_STAGES) -> int:
     """Stages of the contrast-tile ring that fit beside the resident anchor
     tile in a block's shared memory, for padded widths D and C (the byte
-    layout of `mma::geometry`); at most `max_stages`. Raises if not even
-    two fit."""
+    layout of `mma::geometry`; C = 0 for pass 1, whose rows keep their 16
+    padding bytes); at most `max_stages`. Raises if not even two fit."""
     pitch = (D * 2 + 16) + (C * 2 + 16)
     anchors = tile_a * pitch
     stage = MMA_TILE_C * pitch + MMA_TILE_C * 6
@@ -293,10 +292,11 @@ class MmaTune(NamedTuple):
 
 
 def anchor_tile(kernel: str, D: int, C: int) -> int:
-    """Anchors per block of a tensor-core kernel ("pass2" | "bwd") at padded
-    widths D, C: the first of its tiles whose resident anchors leave room
-    for a ring (pass 2 takes 256 anchors = 16 warps where they fit, 128
-    with ADE's 151 probabilities). Raises if none does."""
+    """Anchors per block of a tensor-core kernel ("pass1" | "pass2" |
+    "bwd") at padded widths D, C (0 for pass 1): the first of its tiles
+    whose resident anchors leave room for a ring (passes 1 and 2 take 256
+    anchors = 16 warps where they fit, pass 2 128 with ADE's 151
+    probabilities). Raises if none does."""
     for tile_a in MMA_TILE_A[kernel]:
         try:
             ring_stages(D, C, tile_a)
@@ -307,32 +307,42 @@ def anchor_tile(kernel: str, D: int, C: int) -> int:
 
 
 class Prepared(NamedTuple):
-    """A batch as the kernels take it. `af`, `cf` (and in f32 mode `ap`,
-    `cp`): contiguous float32 for the FMA kernels; in bf16 mode they are the
-    bf16-rounded features widened again (pass 1 reads them) and `ap` / `cp`
-    are None. `slots`: int32 labels, one byte per validity / is-new bit.
-    `variant`: what pass 2 and the backward launch; `mma`: their operands
-    when that is the tensor-core variant."""
-    af: torch.Tensor
+    """A batch as the kernels take it. f32 mode: `af`, `ap`, `cf`, `cp`
+    contiguous float32 for the FMA kernels, `mma` None. bf16 mode: those
+    four are None and `mma` holds the padded 2-byte operands of the
+    tensor-core kernels. `slots`: int32 labels, one byte per validity /
+    is-new bit. `variant`: what the three kernels launch."""
+    af: Optional[torch.Tensor]
     ap: Optional[torch.Tensor]
-    cf: torch.Tensor
+    cf: Optional[torch.Tensor]
     cp: Optional[torch.Tensor]
     slots: tuple            # la, av, an, lc, cv, cn
     variant: str            # "fma" | "mma"
     mma: Optional[Bf16Operands]
     dims: tuple             # P, M, D, C
 
+    @property
+    def device(self) -> torch.device:
+        return self.slots[0].device
+
 
 def prepare(batch: ContrastiveBatch, compute_dtype=torch.float32) -> Prepared:
-    """Check a CUDA batch and lay it out for the kernels of its mode: float32
-    operands as they are for the FMA variant (no padding: those kernels mask
-    the ragged edges themselves), `bf16_layout` for the tensor-core
-    variant."""
+    """Check a CUDA batch and lay it out for the kernels of its mode
+    (`layout_batch`)."""
+    if batch.anchor_feat.device.type != "cuda":
+        raise ValueError(f"the tiled contrastive kernels run on CUDA "
+                         f"tensors, got {batch.anchor_feat.device}")
+    return layout_batch(batch, compute_dtype)
+
+
+def layout_batch(batch: ContrastiveBatch,
+                 compute_dtype=torch.float32) -> Prepared:
+    """Check a batch and lay it out for the kernels of its mode, on the
+    batch's device: float32 operands as they are for the FMA variant (no
+    padding: those kernels mask the ragged edges themselves), `bf16_layout`
+    alone for the tensor-core variant (no float32 copy of any operand)."""
     variant = kernel_variant(compute_dtype)
     A, C = batch.anchor_feat, batch.contrast_feat
-    if A.device.type != "cuda":
-        raise ValueError(f"the tiled contrastive kernels run on CUDA "
-                         f"tensors, got {A.device}")
     if A.dtype != torch.float32 or C.dtype != torch.float32 \
             or batch.anchor_prob.dtype != torch.float32 \
             or batch.contrast_prob.dtype != torch.float32:
@@ -377,10 +387,7 @@ def prepare(batch: ContrastiveBatch, compute_dtype=torch.float32) -> Prepared:
     # cp.async copies 16 bytes at a time from 16-byte aligned addresses
     ops = ops._replace(slots=tuple(
         t if t.data_ptr() % 16 == 0 else t.clone() for t in ops.slots))
-    D = dims[2]
-    return Prepared(ops.af[:P, :D].float().contiguous(), None,
-                    ops.cf[:M, :D].float().contiguous(), None, slots,
-                    variant, ops, dims)
+    return Prepared(None, None, None, None, slots, variant, ops, dims)
 
 
 @functools.lru_cache(maxsize=None)
@@ -390,20 +397,22 @@ def _kernel_fns():
     pass2(af, ap, cf, cp, 6 slot arrays, neg, s, g, P, M, D, C, tau, stream)
     bwd(af, ap, cf, cp, 6 slot arrays, neg, g, coef, da, P, M, D, C, tau,
         stream)
-    pass2_mma / bwd_mma: the same pointers (bf16 operands, padded), then
-        P, M, D, C, tau, parts, stages, tile_a, (bwd_mma: known_depth,)
-        stream."""
+    pass1_mma / pass2_mma / bwd_mma: the same pointers (bf16 operands,
+        padded), then the same sizes, tau, parts, stages, tile_a,
+        (bwd_mma: known_depth,) stream."""
     lib = build.load(KERNEL)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fns = {"pass1": (lib.ucd_contrastive_pass1, 10, 3),
            "pass2": (lib.ucd_contrastive_pass2, 13, 4),
            "bwd": (lib.ucd_contrastive_bwd, 14, 4),
+           "pass1_mma": (lib.ucd_contrastive_pass1_mma, 10, 3),
            "pass2_mma": (lib.ucd_contrastive_pass2_mma, 13, 4),
            "bwd_mma": (lib.ucd_contrastive_bwd_mma, 14, 4)}
     for name, (fn, n_ptr, n_int) in fns.items():
         fn.restype = ctypes.c_int
         fn.argtypes = [p] * n_ptr + [i] * n_int + [f] \
-            + [i] * {"pass2_mma": 3, "bwd_mma": 4}.get(name, 0) + [p]
+            + [i] * {"pass1_mma": 3, "pass2_mma": 3,
+                     "bwd_mma": 4}.get(name, 0) + [p]
     return {name: fn for name, (fn, _, _) in fns.items()}
 
 
@@ -419,20 +428,21 @@ def _call(name: str, device, ptrs, ints, temperature: float, *flags):
 
 
 def _row(prep: Prepared) -> torch.Tensor:
-    return torch.empty(prep.af.shape[0], dtype=torch.float32,
-                       device=prep.af.device)
+    return torch.empty(prep.dims[0], dtype=torch.float32,
+                       device=prep.device)
 
 
 def _check_rows(prep: Prepared, *rows: torch.Tensor):
     """Per-anchor kernel inputs: contiguous f32 (P,) on the batch's
     device."""
+    P = prep.dims[0]
     for x in rows:
-        if x.shape != (prep.af.shape[0],) or x.dtype != torch.float32 \
-                or x.device != prep.af.device or not x.is_contiguous():
+        if x.shape != (P,) or x.dtype != torch.float32 \
+                or x.device != prep.device or not x.is_contiguous():
             raise ValueError(
-                f"expected a contiguous float32 ({prep.af.shape[0]},) "
-                f"tensor on {prep.af.device}, got {x.dtype} "
-                f"{tuple(x.shape)} on {x.device}")
+                f"expected a contiguous float32 ({P},) tensor on "
+                f"{prep.device}, got {x.dtype} {tuple(x.shape)} on "
+                f"{x.device}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -444,9 +454,15 @@ def _call_mma(kernel: str, prep: Prepared, rows, out_cols, temperature,
               tune: Optional[MmaTune]):
     """Launch a tensor-core kernel over the padded operands: `rows` are its
     per-anchor inputs (padded here with zeros), the outputs are allocated as
-    (parts, P', *out_cols) each and returned."""
+    (parts, P', *out_cols) each and returned. Pass 1 takes no
+    probabilities (C = 0)."""
     ops, tune = prep.mma, tune or MmaTune()
-    (Pp, Dp), Mp, Cp = ops.af.shape, ops.cf.shape[0], ops.ap.shape[1]
+    (Pp, Dp), Mp = ops.af.shape, ops.cf.shape[0]
+    if kernel == "pass1":
+        Cp, feats, sizes = 0, (ops.af, ops.cf), (Pp, Mp, Dp)
+    else:
+        Cp = ops.ap.shape[1]
+        feats, sizes = (ops.af, ops.ap, ops.cf, ops.cp), (Pp, Mp, Dp, Cp)
     tile_a = tune.tile_a or anchor_tile(kernel, Dp, Cp)
     if Pp % tile_a:
         raise ValueError(f"anchor tile {tile_a} does not divide the padded "
@@ -459,22 +475,31 @@ def _call_mma(kernel: str, prep: Prepared, rows, out_cols, temperature,
     rows = [x if Pp == P else F.pad(x, (0, Pp - P)) for x in rows]
     out = [torch.empty((parts, Pp, *cols), dtype=torch.float32,
                        device=device) for cols in out_cols]
-    _call(f"{kernel}_mma", device,
-          (ops.af, ops.ap, ops.cf, ops.cp, *ops.slots, *rows, *out),
-          (Pp, Mp, Dp, Cp), temperature, parts, stages, tile_a,
+    _call(f"{kernel}_mma", device, (*feats, *ops.slots, *rows, *out),
+          sizes, temperature, parts, stages, tile_a,
           *((1 if tune.known_depth is None else tune.known_depth,)
             if kernel == "bwd" else ()))
     return out
 
 
-def launch_pass1(prep: Prepared, temperature: float):
-    """Launch contrastive_pass1_kernel. Returns (neg, num), f32 (P,)."""
+def launch_pass1(prep: Prepared, temperature: float, *,
+                 tune: Optional[MmaTune] = None):
+    """Launch contrastive_pass1_kernel (FMA variant) or
+    contrastive_pass1_mma_kernel (tensor-core variant; `tune` overrides its
+    launch parameters, for measurements). Returns (neg, num), f32 (P,)."""
+    mma = prep.variant == "mma"
     P, M, D, _ = prep.dims
-    neg, num = _row(prep), _row(prep)
-    _call("pass1", prep.af.device, (prep.af, prep.cf, *prep.slots, neg, num),
-          (P, M, D), temperature)
+    if mma:
+        neg, num = (sum_parts(x)[:P] for x in _call_mma(
+            "pass1", prep, (), ((), ()), temperature, tune))
+    else:
+        neg, num = _row(prep), _row(prep)
+        _call("pass1", prep.device,
+              (prep.af, prep.cf, *prep.slots, neg, num), (P, M, D),
+              temperature)
     with _count_lock:
         pixel_contrastive_loss_tiled.launches_pass1 += 1
+        pixel_contrastive_loss_tiled.launches_pass1_mma += mma
     return neg, num
 
 
@@ -491,7 +516,7 @@ def launch_pass2(prep: Prepared, neg: torch.Tensor, temperature: float, *,
             "pass2", prep, (neg,), ((), ()), temperature, tune))
     else:
         s, g = _row(prep), _row(prep)
-        _call("pass2", prep.af.device,
+        _call("pass2", prep.device,
               (prep.af, prep.ap, prep.cf, prep.cp, *prep.slots, neg, s, g),
               prep.dims, temperature)
     with _count_lock:
@@ -517,8 +542,8 @@ def launch_bwd(prep: Prepared, neg, g, coef, temperature: float, *,
             da = da[:P, :D].contiguous()
     else:
         da = torch.empty(prep.af.shape, dtype=torch.float32,
-                         device=prep.af.device)
-        _call("bwd", prep.af.device,
+                         device=prep.device)
+        _call("bwd", prep.device,
               (prep.af, prep.ap, prep.cf, prep.cp, *prep.slots, neg, g, coef,
                da), prep.dims, temperature)
     with _count_lock:
@@ -576,8 +601,9 @@ def pixel_contrastive_loss_tiled(batch: ContrastiveBatch,
     """Drop-in replacement for ops.contrastive.pixel_contrastive_loss
     (stabilized form) that streams the contrast set. A CUDA batch launches
     the kernels (counted in `.launches_pass1`, `.launches_pass2`,
-    `.launches_bwd`; `.launches_pass2_mma` / `.launches_bwd_mma` count those
-    of them that were the tensor-core variant) or raises; a CPU batch takes the plain stages. Gradient
+    `.launches_bwd`; `.launches_pass1_mma`, `.launches_pass2_mma` and
+    `.launches_bwd_mma` count those of them that were the tensor-core
+    variant) or raises; a CPU batch takes the plain stages. Gradient
     flows to `batch.anchor_feat` only, through the closed-form backward."""
     _check_dtype(compute_dtype)
     device = batch.anchor_feat.device
@@ -591,5 +617,6 @@ def pixel_contrastive_loss_tiled(batch: ContrastiveBatch,
 pixel_contrastive_loss_tiled.launches_pass1 = 0
 pixel_contrastive_loss_tiled.launches_pass2 = 0
 pixel_contrastive_loss_tiled.launches_bwd = 0
+pixel_contrastive_loss_tiled.launches_pass1_mma = 0
 pixel_contrastive_loss_tiled.launches_pass2_mma = 0
 pixel_contrastive_loss_tiled.launches_bwd_mma = 0
