@@ -310,3 +310,126 @@ def test_backward_class_limit_is_its_shared_memory():
     with pytest.raises(ValueError, match="shared memory"):
         TF.launch_bwd(z, z, lab, torch.zeros(2), old_cl=1, ce_mode="unce",
                       kd_mode="unkd", alpha=1.0)
+
+
+def test_gate_refuses_class_counts_beyond_the_kernels_on_cuda():
+    """The fused-loss gate of the train and validate steps: on a CUDA
+    device a class count whose backward cell kernel needs more than the
+    card's shared memory takes the dense path (1300 / 1300 classes), ADE's
+    151 / 101 the fused one; on the CPU the gate is the JAX one at any
+    class count."""
+    from ucd_torch import config as C
+    from ucd_torch.engine.train import _fused_gate
+
+    cfg = C.make_config(dataset="ade", task="100-50", step=1, method="MiB",
+                        crop_size=64)
+    cuda = torch.device("cuda")
+    for n, n_old, want in ((1300, 1300, False), (151, 101, True)):
+        sem, old = (2, 4, 4, n), (2, 4, 4, n_old)
+        assert _fused_gate(cfg, sem, (2, 64, 64), old, cuda) == (
+            "unce", "unkd", want), n
+        assert _fused_gate(cfg, sem, (2, 64, 64), old, "cpu")[2]
+        assert JF.supported(sem, (2, 64, 64), "unce", "unkd")
+    # without KD the backward holds C classes and one unused old one
+    assert not TF.supported((2, 4, 4, 1800), (2, 64, 64), "ce", "none",
+                            None, cuda)
+    assert TF.supported((2, 4, 4, 1100), (2, 64, 64), "ce", "none", None,
+                        cuda)
+
+
+RATIOS_2D = [((4, 4), (32, 32)), ((13, 17), (100, 132)), ((16, 16), (16, 16)),
+             ((5, 7), (7, 9))]
+
+
+def _forward_emulation(z, t, lab, old_cl, ce_mode, kd_mode, alpha=1.0):
+    """torch emulation of csrc/fused_loss.cu's forward in z's dtype: per
+    cell of `cells`, each class's 2x2 corners as the polynomial k0 + lx k1
+    + ly (k2 + lx k3) (alpha folded into the old logits'), then per pixel
+    the kernel's subset maxima and sums, its label' rule and its CE / KD
+    formulas. Returns (sum of CE terms, sum of KD terms)."""
+    B, h, w, C = z.shape
+    H, W = lab.shape[1:]
+    identity = (h, w) == (H, W)
+    (ycells, _), (xcells, _) = (TF.cells(h, H, identity),
+                                TF.cells(w, W, identity))
+    fy = torch.from_numpy(_src64(h, H, identity)[2]).to(z.dtype)
+    fx = torch.from_numpy(_src64(w, W, identity)[2]).to(z.dtype)
+
+    def upsample(x):
+        out = torch.empty(B, H, W, x.shape[-1], dtype=x.dtype)
+        for y0, y1, r0, r1 in ycells:
+            for x0, x1, c0, c1 in xcells:
+                a, b_ = x[:, r0, c0], x[:, r0, c1]
+                c_, d = x[:, r1, c0], x[:, r1, c1]
+                k0, k1, k2, k3 = a, b_ - a, c_ - a, (a - b_) - (c_ - d)
+                ly = fy[y0:y1, None, None]
+                lx = fx[None, x0:x1, None]
+                out[:, y0:y1, x0:x1] = (ly * (lx * k3[:, None, None]
+                                              + k2[:, None, None])
+                                        + (lx * k1[:, None, None]
+                                           + k0[:, None, None]))
+        return out
+
+    v = upsample(z)
+    lse = lambda x: x.amax(-1) + torch.log(  # noqa: E731
+        torch.exp(x - x.amax(-1, keepdim=True)).sum(-1))
+    den = lse(v)
+    lab = lab.long()
+    valid = lab != 255
+    safe = torch.where(valid, lab, 0)
+    if ce_mode == "unce":
+        safe = torch.where(safe < old_cl, 0, safe)
+    safe = safe.clamp(0, C - 1)
+    sel = v.gather(-1, safe[..., None])[..., 0]
+    if ce_mode == "unce":
+        sel = torch.where(safe == 0, lse(v[..., :old_cl]), sel)
+    ce = torch.where(valid, den - sel, 0).sum()
+    if kd_mode == "none":
+        return ce, torch.zeros((), dtype=z.dtype)
+    Co = t.shape[-1]
+    tv = upsample(alpha * t)
+    e = torch.exp(tv - tv.amax(-1, keepdim=True))
+    s_t = e.sum(-1)
+    if kd_mode == "kd":
+        kd = (e * v[..., :Co]).sum(-1) / s_t - lse(v[..., :Co])
+    else:
+        lse_bn = lse(torch.cat([v[..., :1], v[..., Co:]], -1))
+        t2 = (e[..., 1:] * v[..., 1:Co]).sum(-1)
+        kd = (e[..., 0] / s_t * (lse_bn - den) + t2 / s_t
+              - e[..., 1:].sum(-1) / s_t * den)
+    return ce, kd.sum()
+
+
+@pytest.mark.parametrize("hw,out", RATIOS_2D)
+@pytest.mark.parametrize("ce_mode,kd_mode", [("ce", "none"), ("unce", "kd"),
+                                             ("unce", "unkd")])
+def test_forward_cells_give_the_plain_losses(hw, out, ce_mode, kd_mode):
+    """The forward kernel's cell polynomials cover every output pixel with
+    its own 2x2 taps, and its per-pixel formulas are the plain losses': at
+    f64 (weights too) the emulation equals fused_ce_kd_plain to rtol
+    1e-12 (alpha 2)."""
+    z, t, lab = _case(8, B=2, h=hw[0], w=hw[1], C=11, Co=6, H=out[0],
+                      W=out[1])
+    kw = dict(old_cl=6 if ce_mode == "unce" else 0, ce_mode=ce_mode,
+              kd_mode=kd_mode, alpha=2.0)
+    z64, t64 = torch.from_numpy(z).double(), torch.from_numpy(t).double()
+    lab_t = torch.from_numpy(lab)
+    ce, kd = _forward_emulation(z64, t64, lab_t, **kw)
+    n_pix = lab.size
+    pc, pk = TF.fused_ce_kd_plain(z64, lab_t, t64, **kw)
+    np.testing.assert_allclose(float(ce) / n_pix, float(pc), rtol=1e-12)
+    np.testing.assert_allclose(-float(kd) / (t.shape[-1] * n_pix),
+                               float(pk), rtol=1e-12, atol=1e-15)
+
+
+def test_forward_register_bounds_match_the_source():
+    """The forward's sizes in the wrapper are the CUDA source's: FWD_WARPS
+    cells a block, one float4 a class of z and of the old logits."""
+    import re
+    from pathlib import Path
+
+    src = (Path(TF.__file__).parent / "csrc" / "fused_loss.cu").read_text()
+    m = re.search(r"constexpr int FWD_WARPS = (\d+);", src)
+    assert m and int(m.group(1)) == TF.FWD_WARPS
+    assert TF.fwd_shared_bytes(17, 16) == TF.FWD_WARPS * 33 * 16
+    assert TF.fwd_shared_bytes(151, 101) <= TF.MAX_SHARED

@@ -133,16 +133,21 @@ def make_optimizer(cfg: Config, total_iters: int) -> Optimizer:
     return Optimizer(cfg, total_iters)
 
 
-def _fused_gate(cfg: Config, sem_shape, label_shape, kd_on: bool):
+def _fused_gate(cfg: Config, sem_shape, label_shape, old_shape, device):
     """Shared fused-kernel gating for train and eval: (ce_mode, kd_mode,
     use_fused). The fused path computes the criterion and the KD term
     straight from the low-res logits; bce/icarl configs keep the dense
-    path."""
+    path, and so do class counts beyond the kernels on `device`.
+    `old_shape` is the donor's low-res logits' shape when KD is on, else
+    None."""
     ce_mode = "unce" if (cfg.unce and cfg.old_classes != 0) else "ce"
-    kd_mode = ("unkd" if cfg.unkd else "kd") if kd_on else "none"
+    kd_mode = ("unkd" if cfg.unkd else "kd") if old_shape is not None \
+        else "none"
     use_fused = (cfg.fused_loss
                  and not (cfg.bce or cfg.icarl)
-                 and FL.supported(sem_shape, label_shape, ce_mode, kd_mode))
+                 and FL.supported(sem_shape, label_shape, ce_mode, kd_mode,
+                                  None if old_shape is None
+                                  else old_shape[-1], device))
     return ce_mode, kd_mode, use_fused
 
 
@@ -197,8 +202,9 @@ def compute_train_losses(cfg: Config, outputs, feats, labels,
     terms: Dict[str, torch.Tensor] = {}
 
     kd_on = cfg.loss_kd > 0 and has_old
-    ce_mode, kd_mode, use_fused = _fused_gate(cfg, sem.shape, labels.shape,
-                                              kd_on)
+    ce_mode, kd_mode, use_fused = _fused_gate(
+        cfg, sem.shape, labels.shape,
+        feats_old["sem"].shape if kd_on else None, sem.device)
     lkd = zero
     if use_fused:
         loss, kd_raw = FL.fused_ce_kd(
@@ -402,8 +408,9 @@ def make_eval_step(cfg: Config, model, model_old=None, device=None):
         sem = feats["sem"]
 
         kd_on = cfg.loss_kd > 0 and use_old
-        ce_mode, kd_mode, use_fused = _fused_gate(cfg, sem.shape,
-                                                  labels.shape, kd_on)
+        ce_mode, kd_mode, use_fused = _fused_gate(
+            cfg, sem.shape, labels.shape,
+            feats_old["sem"].shape if kd_on else None, sem.device)
         use_fused = use_fused and FE.supported(sem.shape, hw)
 
         lkd = lde = torch.zeros((), dtype=wide_dtype(sem.dtype),

@@ -27,17 +27,28 @@
 // Forward (`fused_loss_fwd_kernel`). Bound: operations. At the train shape
 // (8, 32, 32, 17) + (8, 32, 32, 16) -> (8, 512, 512) it must read 1.1 MB of
 // logits and 2.1 MB of uint8 labels (about 1 us of memory time) but
-// evaluates ~50 exp and ~250 flops per output pixel. The TPU kernel's width
-// dot against a dense interpolation matrix and its 3-slot row windows are
-// answers to the MXU and VMEM; here the upsample is a 4-tap gather from 1-D
-// tap tables (index0, index1, frac) built on the host, computed inside the
-// kernel. Design: one thread per output pixel, blockIdx.y the output row and
-// blockIdx.z the image (row taps uniform across a block, neighbouring
-// threads share source pixels through L1); pass 1 over the classes finds
-// each subset's max, pass 2 the sums, each pass re-forming the upsampled
-// logit from its 4 taps, so a pixel needs no per-class storage and any class
-// count works; a warp-shuffle + shared-memory block reduction writes one
-// partial per block and term, which the wrapper sums.
+// evaluates 51 exp and 4 log per output pixel (27.6 us at the special
+// function units' 16 a clock per SM). A first design (one thread per pixel,
+// two passes over the classes, each re-forming every upsampled logit from
+// 4 gathered taps: 264 L1 loads a pixel) took 199 us. This one:
+//  * Cells (the host's `cells`, as the backward): maximal rectangles of
+//    output pixels whose taps read the same 2x2 source pixels, 16 x 16 at
+//    scale 16. One warp per cell, 4 cells a block. The warp turns the
+//    cell's 2x2 corners of each class into the bilinear polynomial
+//    k0 + lx k1 + ly (k2 + lx k3) once (alpha folded into the old
+//    logits'), kept in shared memory as one float4 a class.
+//  * Each lane takes the cell's pixels 32 apart (labels read along the
+//    cell's rows). Per pixel it forms the C + Co upsampled logits once, 3
+//    FMAs each from a broadcast float4, into registers (template bounds NZ
+//    >= C and NT >= Co, multiples of 8 up to 32 with NT = NZ or NZ - 8;
+//    the values past C / Co are -inf and take no exp), then the maxima of
+//    every log-sum-exp subset, then the sums, each exp one FMA and one ex2
+//    of the special function unit. Other class counts (above 32, or Co far
+//    below C) re-form the values from the float4s in each loop instead.
+//  * Each lane adds its pixels' terms in order, the warp adds its lanes by
+//    a fixed shuffle tree, the block its 4 warps in order: one partial a
+//    block and term (2048 at the train shape), the same bits every run,
+//    summed in float64 by the wrapper.
 //
 // Backward (`fused_loss_bwd_cells_kernel`, then `fused_loss_fold_kernel`).
 // Bound: operations, the forward's exps at the special function units' rate
@@ -80,94 +91,10 @@ namespace {
 enum { CE_PLAIN = 0, CE_UNCE = 1 };
 enum { KD_NONE = 0, KD_KD = 1, KD_UNKD = 2 };
 constexpr int IGNORE = 255;
-constexpr int FWD_THREADS = 128;
-
-// The four source pixels of one output pixel and their weights, in the
-// form of torch.nn.functional.interpolate(bilinear, align_corners=False):
-// hy*(hx*a + lx*b) + ly*(hx*c + lx*d).
-struct Taps {
-  const float* p00;
-  const float* p01;
-  const float* p10;
-  const float* p11;
-  float hy, ly, hx, lx;
-};
-
-__device__ __forceinline__ Taps make_taps(const float* base, int b, int h,
-                                          int w, int C, int y0, int y1,
-                                          float fy, int x0, int x1,
-                                          float fx) {
-  Taps t;
-  const int64_t row0 = ((int64_t)b * h + y0) * w;
-  const int64_t row1 = ((int64_t)b * h + y1) * w;
-  t.p00 = base + (row0 + x0) * C;
-  t.p01 = base + (row0 + x1) * C;
-  t.p10 = base + (row1 + x0) * C;
-  t.p11 = base + (row1 + x1) * C;
-  t.ly = fy;
-  t.hy = 1.0f - fy;
-  t.lx = fx;
-  t.hx = 1.0f - fx;
-  return t;
-}
-
-__device__ __forceinline__ float up(const Taps& t, int c) {
-  return t.hy * (t.hx * __ldg(t.p00 + c) + t.lx * __ldg(t.p01 + c)) +
-         t.ly * (t.hx * __ldg(t.p10 + c) + t.lx * __ldg(t.p11 + c));
-}
-
-// Softmax pieces of one output pixel. `sub` is the KD subset of the new
-// logits: classes < Co (kd) or {0} u classes >= Co (unkd).
-struct Stats {
-  float m_all, s_all;  // all classes of z
-  float m_old, s_old;  // classes < old_cl (unce)
-  float m_sub, s_sub;  // KD subset of z
-  float m_t, s_t;      // alpha * tz over its Co classes
-  float sel;           // z[safe]
-  float e_t0;          // exp(alpha*tz_0 - m_t)
-  float s_mid;         // sum_{1<=c<Co} exp(alpha*tz_c - m_t)
-  float t2;            // sum e_t_c * z_c over c<Co (kd) or 1<=c<Co (unkd)
-};
 
 template <int KD>
 __device__ __forceinline__ bool in_sub(int c, int Co) {
   return KD == KD_KD ? (c < Co) : (c == 0 || c >= Co);
-}
-
-template <int CE, int KD>
-__device__ __forceinline__ Stats pixel_stats(const Taps& zt, const Taps& tt,
-                                             int C, int Co, int old_cl,
-                                             float alpha, int safe) {
-  Stats s;
-  s.m_all = s.m_old = s.m_sub = s.m_t = -INFINITY;
-  for (int c = 0; c < C; ++c) {
-    const float v = up(zt, c);
-    s.m_all = fmaxf(s.m_all, v);
-    if (CE == CE_UNCE && c < old_cl) s.m_old = fmaxf(s.m_old, v);
-    if (KD != KD_NONE && in_sub<KD>(c, Co)) s.m_sub = fmaxf(s.m_sub, v);
-  }
-  if (KD != KD_NONE) {
-    for (int c = 0; c < Co; ++c) s.m_t = fmaxf(s.m_t, alpha * up(tt, c));
-  }
-  s.s_all = s.s_old = s.s_sub = s.s_t = 0.0f;
-  s.sel = s.e_t0 = s.s_mid = s.t2 = 0.0f;
-  for (int c = 0; c < C; ++c) {
-    const float v = up(zt, c);
-    s.s_all += expf(v - s.m_all);
-    if (c == safe) s.sel = v;
-    if (CE == CE_UNCE && c < old_cl) s.s_old += expf(v - s.m_old);
-    if (KD != KD_NONE) {
-      if (in_sub<KD>(c, Co)) s.s_sub += expf(v - s.m_sub);
-      if (c < Co) {
-        const float e = expf(alpha * up(tt, c) - s.m_t);
-        s.s_t += e;
-        if (c == 0) s.e_t0 = e;
-        if (c >= 1) s.s_mid += e;
-        if (KD == KD_KD || c >= 1) s.t2 += e * v;
-      }
-    }
-  }
-  return s;
 }
 
 // label' of the CE term and whether the pixel counts (label != 255)
@@ -187,68 +114,222 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <int CE, int KD, typename L>
-__global__ void __launch_bounds__(FWD_THREADS)
+constexpr int FWD_WARPS = 4;  // cells (warps) per block of the forward
+constexpr float LOG2E = 1.4426950408889634f;
+
+// exp(v - m) given m * log2(e): one FMA and one ex2 of the special function
+// unit (relative error ~2^-22; -inf gives 0). The logs of the forward take
+// __logf likewise: each is of a sum in [1, C], where its error is a few
+// ulp, far inside the losses' tolerance.
+__device__ __forceinline__ float exp_shift(float v, float m_log2e) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(fmaf(v, LOG2E, -m_log2e)));
+  return r;
+}
+
+// one class of a cell at pixel weights (lx, ly): the bilinear polynomial
+// k.x + lx k.y + ly (k.z + lx k.w) of its 2x2 corners
+__device__ __forceinline__ float bilin(float4 k, float lx, float ly) {
+  return fmaf(ly, fmaf(lx, k.w, k.z), fmaf(lx, k.y, k.x));
+}
+
+// f(c) for the classes c in [lo, hi): unrolled over a register array of N
+// in chunks of 8 (c known when compiled; a chunk wholly inside the range
+// runs without a test per class) or, for N = 0, a loop
+template <int N, typename F>
+__device__ __forceinline__ void each(int lo, int hi, F f) {
+  if constexpr (N > 0) {
+#pragma unroll
+    for (int c0 = 0; c0 < N; c0 += 8) {
+      if (c0 >= hi) break;
+      if (c0 + 8 <= lo) continue;
+      if (c0 >= lo && c0 + 8 <= hi) {
+#pragma unroll
+        for (int k = 0; k < 8; ++k) f(c0 + k);
+      } else {
+#pragma unroll
+        for (int k = 0; k < 8; ++k)
+          if (c0 + k >= lo && c0 + k < hi) f(c0 + k);
+      }
+    }
+  } else {
+    for (int c = lo; c < hi; ++c) f(c);
+  }
+}
+
+// One output pixel's CE and KD terms from its cell's class polynomials zc
+// (C) and tc (Co, alpha folded in). NZ >= C > NZ - 8 and NT >= Co > NT - 8
+// hold the upsampled values in registers; NZ = NT = 0 re-forms them from
+// the polynomials in each loop.
+template <int KD, int NZ, int NT>
+__device__ __forceinline__ void pixel_loss(const float4* zc, const float4* tc,
+                                           int C, int Co, int old_cl,
+                                           bool unce, int lab, float lx,
+                                           float ly, float* ce, float* kd) {
+  constexpr int RZ = NZ > 0 ? NZ : 1, RT = NT > 0 ? NT : 1;
+  if constexpr (NZ > 0) __builtin_assume(C > NZ - 8);
+  if constexpr (NT > 0) __builtin_assume(Co > NT - 8);
+  float zv[RZ], tv[RT];
+  if constexpr (NZ > 0) {
+#pragma unroll
+    for (int c = 0; c < NZ; ++c)
+      zv[c] = c < C ? bilin(zc[c], lx, ly) : -INFINITY;
+  }
+  if constexpr (KD != KD_NONE && NT > 0) {
+#pragma unroll
+    for (int c = 0; c < NT; ++c)
+      tv[c] = c < Co ? bilin(tc[c], lx, ly) : -INFINITY;
+  }
+  auto zval = [&](int c) {
+    if constexpr (NZ > 0) return zv[c];
+    else return bilin(zc[c], lx, ly);
+  };
+  auto tval = [&](int c) {
+    if constexpr (NT > 0) return tv[c];
+    else return bilin(tc[c], lx, ly);
+  };
+  // the values past C are -inf: the maxima may run over all NZ
+  const int CZ = NZ > 0 ? NZ : C;
+
+  float m_all = -INFINITY;
+  each<NZ>(0, CZ, [&](int c) { m_all = fmaxf(m_all, zval(c)); });
+  float s_all = 0.0f;
+  const float mla = m_all * LOG2E;
+  each<NZ>(0, C, [&](int c) { s_all += exp_shift(zval(c), mla); });
+  const float den = m_all + __logf(s_all);
+
+  const bool valid = lab != IGNORE;
+  int safe = valid ? lab : 0;
+  if (unce && safe < old_cl) safe = 0;
+  safe = min(max(safe, 0), C - 1);
+  if (valid) {
+    float sel;
+    if (unce && safe == 0) {  // lse over the old classes
+      float m_old = -INFINITY, s_old = 0.0f;
+      each<NZ>(0, old_cl, [&](int c) { m_old = fmaxf(m_old, zval(c)); });
+      const float mlo = m_old * LOG2E;
+      each<NZ>(0, old_cl, [&](int c) { s_old += exp_shift(zval(c), mlo); });
+      sel = m_old + __logf(s_old);
+    } else {
+      sel = bilin(zc[safe], lx, ly);  // the same bits as zval(safe)
+    }
+    *ce = den - sel;
+  } else {
+    *ce = 0.0f;
+  }
+  if constexpr (KD == KD_NONE) {
+    *kd = 0.0f;
+  } else {
+    // the KD subset of z: classes < Co (kd), {0} u classes >= Co (unkd)
+    float m_sub = KD == KD_KD ? -INFINITY : zval(0);
+    if constexpr (KD == KD_KD)
+      each<NZ>(0, Co, [&](int c) { m_sub = fmaxf(m_sub, zval(c)); });
+    else
+      each<NZ>(Co, CZ, [&](int c) { m_sub = fmaxf(m_sub, zval(c)); });
+    const float mls = m_sub * LOG2E;
+    float s_sub = KD == KD_KD ? 0.0f : exp_shift(zval(0), mls);
+    if constexpr (KD == KD_KD)
+      each<NZ>(0, Co, [&](int c) { s_sub += exp_shift(zval(c), mls); });
+    else
+      each<NZ>(Co, C, [&](int c) { s_sub += exp_shift(zval(c), mls); });
+    // softmax(alpha * tz): its sum, its class 0, the rest, and the sum of
+    // its exps times z over c < Co (kd) or 1 <= c < Co (unkd)
+    float m_t = -INFINITY;
+    each<NT>(0, NT > 0 ? NT : Co, [&](int c) { m_t = fmaxf(m_t, tval(c)); });
+    const float mlt = m_t * LOG2E;
+    float s_t = 0.0f, e_t0 = 0.0f, s_mid = 0.0f, t2 = 0.0f;
+    each<NT>(0, Co, [&](int c) {
+      const float e = exp_shift(tval(c), mlt);
+      s_t += e;
+      if (c == 0) {
+        e_t0 = e;
+        if (KD == KD_KD) t2 += e * zval(c);
+      } else {
+        s_mid += e;
+        t2 += e * zval(c);
+      }
+    });
+    const float lse_sub = m_sub + __logf(s_sub);
+    const float inv = __frcp_rn(s_t);
+    *kd = KD == KD_KD ? t2 * inv - lse_sub
+                      : e_t0 * inv * (lse_sub - den) + t2 * inv -
+                            s_mid * inv * den;
+  }
+}
+
+// One warp per cell (b, cy, cx), FWD_WARPS a block; ycells / xcells: (first
+// output, end, source of tap 0, of tap 1) per cell. Writes one partial sum
+// of each term per block.
+// up to 40 register values (the main path's 24 + 16): 5 blocks an SM (at
+// 6, 80 registers, the main path's kernel spilled)
+template <int KD, int NZ, int NT>
+__global__ void __launch_bounds__(FWD_WARPS * 32, NZ + NT <= 40 ? 5 : 1)
     fused_loss_fwd_kernel(const float* __restrict__ z,
                           const float* __restrict__ tz,
-                          const L* __restrict__ labels,
-                          const int32_t* __restrict__ iy0,
-                          const int32_t* __restrict__ iy1,
+                          const void* __restrict__ labels, int label_bytes,
                           const float* __restrict__ fy,
-                          const int32_t* __restrict__ ix0,
-                          const int32_t* __restrict__ ix1,
                           const float* __restrict__ fx,
+                          const int4* __restrict__ ycells,
+                          const int4* __restrict__ xcells,
                           float* __restrict__ ce_part,
-                          float* __restrict__ kd_part, int h, int w, int C,
-                          int Co, int H, int W, int old_cl, float alpha) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int y = blockIdx.y;
-  const int b = blockIdx.z;
+                          float* __restrict__ kd_part, int n_cells, int h,
+                          int w, int C, int Co, int H, int W, int old_cl,
+                          int unce, float alpha, int ncy, int ncx) {
+  extern __shared__ float4 poly[];
+  __shared__ float sums[2][FWD_WARPS];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int cell = blockIdx.x * FWD_WARPS + warp;
   float ce = 0.0f, kd = 0.0f;
-  if (x < W) {
-    const int y0 = iy0[y], y1 = iy1[y], x0 = ix0[x], x1 = ix1[x];
-    const float ly = fy[y], lx = fx[x];
-    const Taps zt = make_taps(z, b, h, w, C, y0, y1, ly, x0, x1, lx);
-    Taps tt = zt;
-    if (KD != KD_NONE) tt = make_taps(tz, b, h, w, Co, y0, y1, ly, x0, x1, lx);
-    bool valid;
-    const int lab = (int)labels[((int64_t)b * H + y) * W + x];
-    const int safe = safe_label<CE>(lab, old_cl, C, &valid);
-    const Stats s = pixel_stats<CE, KD>(zt, tt, C, Co, old_cl, alpha, safe);
-    const float den = s.m_all + logf(s.s_all);
-    if (valid) {
-      float sel = s.sel;
-      if (CE == CE_UNCE && safe == 0) sel = s.m_old + logf(s.s_old);
-      ce = den - sel;
+  if (cell < n_cells) {  // the whole warp
+    float4* zc = poly + warp * (C + Co);
+    float4* tc = zc + C;
+    const int b = cell / (ncy * ncx);
+    const int4 yc = ycells[(cell / ncx) % ncy], xc = xcells[cell % ncx];
+    const int64_t r0 = (int64_t)b * h + yc.z, r1 = (int64_t)b * h + yc.w;
+    const int64_t p00 = r0 * w + xc.z, p01 = r0 * w + xc.w;
+    const int64_t p10 = r1 * w + xc.z, p11 = r1 * w + xc.w;
+    for (int c = lane; c < C; c += 32) {
+      const float a = __ldg(z + p00 * C + c), bb = __ldg(z + p01 * C + c);
+      const float cc = __ldg(z + p10 * C + c), d = __ldg(z + p11 * C + c);
+      zc[c] = make_float4(a, bb - a, cc - a, (a - bb) - (cc - d));
     }
-    if (KD == KD_KD) {
-      kd = s.t2 / s.s_t - (s.m_sub + logf(s.s_sub));
-    } else if (KD == KD_UNKD) {
-      const float inv = 1.0f / s.s_t;
-      const float lse_bn = s.m_sub + logf(s.s_sub);
-      kd = s.e_t0 * inv * (lse_bn - den) + s.t2 * inv - s.s_mid * inv * den;
+    if (KD != KD_NONE)
+      for (int c = lane; c < Co; c += 32) {
+        const float a = alpha * __ldg(tz + p00 * Co + c);
+        const float bb = alpha * __ldg(tz + p01 * Co + c);
+        const float cc = alpha * __ldg(tz + p10 * Co + c);
+        const float d = alpha * __ldg(tz + p11 * Co + c);
+        tc[c] = make_float4(a, bb - a, cc - a, (a - bb) - (cc - d));
+      }
+    __syncwarp();
+    const int nx = xc.y - xc.x, n = (yc.y - yc.x) * nx;
+    for (int p = lane; p < n; p += 32) {
+      const int y = yc.x + p / nx, x = xc.x + p % nx;
+      const int64_t i = ((int64_t)b * H + y) * W + x;
+      const int lab = label_bytes == 1 ? (int)((const uint8_t*)labels)[i]
+                                       : ((const int32_t*)labels)[i];
+      float ce_px, kd_px;
+      pixel_loss<KD, NZ, NT>(zc, tc, C, Co, old_cl, unce != 0, lab, fx[x],
+                             fy[y], &ce_px, &kd_px);
+      ce += ce_px;
+      kd += kd_px;
     }
   }
-  __shared__ float sm_ce[FWD_THREADS / 32];
-  __shared__ float sm_kd[FWD_THREADS / 32];
   ce = warp_sum(ce);
   kd = warp_sum(kd);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   if (lane == 0) {
-    sm_ce[warp] = ce;
-    sm_kd[warp] = kd;
+    sums[0][warp] = ce;
+    sums[1][warp] = kd;
   }
   __syncthreads();
   if (threadIdx.x == 0) {
     float a = 0.0f, k = 0.0f;
-    for (int i = 0; i < FWD_THREADS / 32; ++i) {
-      a += sm_ce[i];
-      k += sm_kd[i];
+    for (int i = 0; i < FWD_WARPS; ++i) {
+      a += sums[0][i];
+      k += sums[1][i];
     }
-    const int64_t blk =
-        ((int64_t)b * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-    ce_part[blk] = a;
-    kd_part[blk] = k;
+    ce_part[blockIdx.x] = a;
+    kd_part[blockIdx.x] = k;
   }
 }
 
@@ -467,6 +548,7 @@ struct Args {
   const float* z;
   const float* tz;
   const void* labels;
+  int label_bytes;
   const int32_t *iy0, *iy1;
   const float* fy;
   const int32_t *ix0, *ix1;
@@ -476,19 +558,62 @@ struct Args {
   cudaStream_t stream;
 };
 
-template <int CE, int KD, typename L>
-void launch_fwd(const Args& a, float* ce_part, float* kd_part) {
-  const dim3 grid((a.W + FWD_THREADS - 1) / FWD_THREADS, a.H, a.B);
-  fused_loss_fwd_kernel<CE, KD, L><<<grid, FWD_THREADS, 0, a.stream>>>(
-      a.z, a.tz, (const L*)a.labels, a.iy0, a.iy1, a.fy, a.ix0, a.ix1, a.fx,
-      ce_part, kd_part, a.h, a.w, a.C, a.Co, a.H, a.W, a.old_cl, a.alpha);
-}
-
 struct Cells {
   const int4 *ycells, *xcells;
   const int32_t *yfeeds, *xfeeds;
   int ncy, ncx;
 };
+
+template <int KD, int NZ, int NT>
+cudaError_t launch_fwd_n(const Args& a, const Cells& cl, bool unce,
+                         float* ce_part, float* kd_part) {
+  const int n_cells = a.B * cl.ncy * cl.ncx;
+  const int64_t smem = FWD_WARPS * (int64_t)(a.C + a.Co) * sizeof(float4);
+  if (smem > MAX_SHARED) return cudaErrorInvalidValue;
+  auto kernel = fused_loss_fwd_kernel<KD, NZ, NT>;
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<(n_cells + FWD_WARPS - 1) / FWD_WARPS, FWD_WARPS * 32, (int)smem,
+           a.stream>>>(a.z, a.tz, a.labels, a.label_bytes, a.fy, a.fx,
+                       cl.ycells, cl.xcells, ce_part, kd_part, n_cells, a.h,
+                       a.w, a.C, a.Co, a.H, a.W, a.old_cl, unce ? 1 : 0,
+                       a.alpha, cl.ncy, cl.ncx);
+  return cudaGetLastError();
+}
+
+// the register bounds for (C, Co): multiples of 8 with C > NZ - 8 and Co >
+// NT - 8, NT in {NZ, NZ - 8}; (0, 0) (the loop version) otherwise
+template <int KD>
+cudaError_t launch_fwd(const Args& a, const Cells& cl, bool unce,
+                       float* ce_part, float* kd_part) {
+  const int nz = a.C <= 32 ? (a.C + 7) / 8 : 0;
+  int nt = KD == KD_NONE ? 1 : (a.Co + 7) / 8;
+  if (nz == 0 || (KD != KD_NONE && (nt > nz || nt < nz - 1))) nt = 0;
+  const auto go = [&](auto f) { return f(a, cl, unce, ce_part, kd_part); };
+  if constexpr (KD == KD_NONE) {
+    switch (nt == 0 ? 0 : nz) {
+      case 1: return go(launch_fwd_n<KD, 8, 8>);
+      case 2: return go(launch_fwd_n<KD, 16, 8>);
+      case 3: return go(launch_fwd_n<KD, 24, 8>);
+      case 4: return go(launch_fwd_n<KD, 32, 8>);
+      default: return go(launch_fwd_n<KD, 0, 0>);
+    }
+  } else {
+    switch (nt == 0 ? 0 : nz * 8 + nt) {
+      case 9: return go(launch_fwd_n<KD, 8, 8>);
+      case 17: return go(launch_fwd_n<KD, 16, 8>);
+      case 18: return go(launch_fwd_n<KD, 16, 16>);
+      case 26: return go(launch_fwd_n<KD, 24, 16>);
+      case 27: return go(launch_fwd_n<KD, 24, 24>);
+      case 35: return go(launch_fwd_n<KD, 32, 24>);
+      case 36: return go(launch_fwd_n<KD, 32, 32>);
+      default: return go(launch_fwd_n<KD, 0, 0>);
+    }
+  }
+}
 
 template <int CE, int KD, typename L>
 void launch_bwd(const Args& a, const Cells& cl, const float* coefs,
@@ -552,14 +677,19 @@ bool args_ok(const Args& a, int ce_mode, int kd_mode, int label_bytes) {
 
 }  // namespace
 
+// ycells / xcells (ncy, 4) / (ncx, 4) int32: the host's cell tables
+// (ops/fused_eval.py `cells`); ce_part / kd_part: float32 of
+// ceil(B * ncy * ncx / FWD_WARPS), one partial sum per block.
 extern "C" int ucd_fused_loss_fwd(
     const void* z, const void* tz, const void* labels, int label_bytes,
     const void* iy0, const void* iy1, const void* fy, const void* ix0,
-    const void* ix1, const void* fx, void* ce_part, void* kd_part, int B,
-    int h, int w, int C, int Co, int H, int W, int old_cl, int ce_mode,
-    int kd_mode, float alpha, void* stream) {
+    const void* ix1, const void* fx, const void* ycells, const void* xcells,
+    void* ce_part, void* kd_part, int B, int h, int w, int C, int Co, int H,
+    int W, int old_cl, int ce_mode, int kd_mode, int ncy, int ncx,
+    float alpha, void* stream) {
   const Args a = {(const float*)z,     (const float*)tz,
-                  labels,              (const int32_t*)iy0,
+                  labels,              label_bytes,
+                  (const int32_t*)iy0,
                   (const int32_t*)iy1, (const float*)fy,
                   (const int32_t*)ix0, (const int32_t*)ix1,
                   (const float*)fx,    B,
@@ -568,14 +698,18 @@ extern "C" int ucd_fused_loss_fwd(
                   H,                   W,
                   old_cl,              alpha,
                   (cudaStream_t)stream};
-  if (!args_ok(a, ce_mode, kd_mode, label_bytes))
+  if (!args_ok(a, ce_mode, kd_mode, label_bytes) || ncy < 1 || ncx < 1 ||
+      (int64_t)B * ncy * ncx > ((int64_t)1 << 30))
     return (int)cudaErrorInvalidValue;
-  if (label_bytes == 1) {
-    DISPATCH_MODES(launch_fwd, uint8_t, a, (float*)ce_part, (float*)kd_part)
-  } else {
-    DISPATCH_MODES(launch_fwd, int32_t, a, (float*)ce_part, (float*)kd_part)
+  const Cells cl = {(const int4*)ycells, (const int4*)xcells, nullptr,
+                    nullptr, ncy, ncx};
+  const bool unce = ce_mode == CE_UNCE;
+  float *ce = (float*)ce_part, *kd = (float*)kd_part;
+  switch (kd_mode) {
+    case KD_NONE: return (int)launch_fwd<KD_NONE>(a, cl, unce, ce, kd);
+    case KD_KD: return (int)launch_fwd<KD_KD>(a, cl, unce, ce, kd);
+    default: return (int)launch_fwd<KD_UNKD>(a, cl, unce, ce, kd);
   }
-  return (int)cudaGetLastError();
 }
 
 // ycells / xcells (ncy, 4) / (ncx, 4) int32 and yfeeds / xfeeds (h, 3) /
@@ -589,7 +723,8 @@ extern "C" int ucd_fused_loss_bwd(
     void* dz, int B, int h, int w, int C, int Co, int H, int W, int old_cl,
     int ce_mode, int kd_mode, int ncy, int ncx, float alpha, void* stream) {
   const Args a = {(const float*)z,     (const float*)tz,
-                  labels,              (const int32_t*)iy0,
+                  labels,              label_bytes,
+                  (const int32_t*)iy0,
                   (const int32_t*)iy1, (const float*)fy,
                   (const int32_t*)ix0, (const int32_t*)ix1,
                   (const float*)fx,    B,

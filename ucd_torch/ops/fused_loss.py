@@ -18,10 +18,14 @@ PyTorch, differentiated by autograd.
 
 Kernel notes (details in the source):
   * forward: replaces ucd_tpu/ops/fused_loss.py::_loss_kernel. Bound by
-    operations (exp/log and the 4-tap interpolation per pixel and class),
-    not bytes: it reads ~3 MB at the train shape. One thread per output
-    pixel, two passes over the classes (each masked log-sum-exp has its own
-    max), block-reduced partial sums that this wrapper adds up.
+    the exp/log of the special function units, not bytes: it reads ~3 MB
+    at the train shape. One warp per output cell (`cells`: maximal
+    rectangles of pixels whose taps read the same 2x2 source pixels, as
+    the backward), each class turned into a bilinear polynomial once per
+    cell; a lane forms its pixel's C + Co upsampled logits once, in
+    registers up to 32 classes, each masked log-sum-exp with its own max;
+    one partial sum per block of 4 cells, added in a fixed order, which
+    this wrapper sums in float64.
   * backward: replaces ucd_tpu/ops/fused_loss.py::_grad_kernel. Bound by
     operations. The output is cut into cells (`cells`: maximal rectangles
     of pixels whose taps read the same 2x2 source pixels); one warp per
@@ -48,7 +52,7 @@ import torch.nn.functional as F
 from ..models.layers import wide_dtype
 from . import build
 from . import losses as L
-from .fused_eval import taps, taps_on
+from .fused_eval import cells, taps_on
 
 KERNEL = "fused_loss"
 CE_MODES = {"ce": 0, "unce": 1}
@@ -56,14 +60,24 @@ KD_MODES = {"none": 0, "kd": 1, "unkd": 2}
 _count_lock = threading.Lock()
 
 
-def supported(lowres_shape, label_shape, ce_mode: str, kd_mode: str) -> bool:
+def supported(lowres_shape, label_shape, ce_mode: str, kd_mode: str,
+              n_old: Optional[int] = None, device=None) -> bool:
     """Whether the fused path covers this configuration: upsampling only,
     and the plain/unbiased CE/KD modes (bce/icarl/focal take the dense
-    path). `lowres_shape` is NHWC."""
-    _, h, w, _ = lowres_shape
+    path). `lowres_shape` is NHWC; `n_old` is the old logits' class count
+    (when KD is on). On a CUDA `device` the kernels' shared memory bounds
+    the class counts too: the backward's cell kernel holds 8 C + 4 n_old
+    floats a warp (`bwd_shared_bytes`), over the card's 227 KB past about
+    C = n_old = 1,160, and such a configuration takes the dense path. The
+    JAX kernel has no such limit: on the CPU this is the JAX gate."""
+    _, h, w, C = lowres_shape
     H, W = label_shape[-2], label_shape[-1]
-    return (H >= h and W >= w and ce_mode in CE_MODES
-            and kd_mode in KD_MODES)
+    ok = (H >= h and W >= w and ce_mode in CE_MODES
+          and kd_mode in KD_MODES)
+    if ok and device is not None and torch.device(device).type == "cuda":
+        Co = n_old if kd_mode != "none" and n_old else 1
+        ok = bwd_shared_bytes(C, Co) <= MAX_SHARED  # > the forward's
+    return ok
 
 
 # ---------------------------------------------------------------------------
@@ -133,11 +147,17 @@ def _check_modes(C, Co, old_cl, ce_mode, kd_mode):
 # the kernels' wrapper
 # ---------------------------------------------------------------------------
 
-MAX_FEEDS = 3  # (cell, tap) pairs that can land on one source index
 # the cell kernel's block in fused_loss.cu: CELL_WARPS cells, BATCH_PX
 # pixels' terms of NSTAT floats each, and sm_90's opt-in shared memory
 CELL_WARPS, BATCH_PX, NSTAT = 4, 32, 16
 MAX_SHARED = 227 * 1024
+FWD_WARPS = 4  # cells (warps) a block of the forward (fused_loss.cu)
+
+
+def fwd_shared_bytes(C: int, Co: int) -> int:
+    """Shared memory of one block of the forward: per warp (cell) one
+    float4 polynomial per class of z and of the old logits."""
+    return FWD_WARPS * (C + Co) * 16
 
 
 def bwd_shared_bytes(C: int, Co: int) -> int:
@@ -146,34 +166,6 @@ def bwd_shared_bytes(C: int, Co: int) -> int:
     and one batch of pixel terms. The only limit on the class count: the
     forward keeps nothing per class."""
     return CELL_WARPS * (8 * C + 4 * Co + BATCH_PX * NSTAT) * 4
-
-
-@functools.lru_cache(maxsize=64)
-def cells(n_in: int, n_out: int, identity: bool = False):
-    """The backward kernel's 1-D cells of `taps(n_in, n_out, identity)`:
-    maximal runs of consecutive outputs whose two taps read the same two
-    source indices (at scale 16, 16 outputs; the clamped edges make
-    longer and shorter runs). The 2-D cells are their products.
-
-    Returns (table, feeds). table (n_cells, 4) int32: first output, end,
-    source index of tap 0, of tap 1. feeds (n_in, MAX_FEEDS) int32: the
-    (cell, tap) pairs that land on each source index, as 2 * cell + tap, in
-    increasing order, -1 where there are fewer: the order in which the fold
-    adds a source's partial sums (both taps of a clamped edge land on one
-    source and add)."""
-    i0, i1, _ = taps(n_in, n_out, identity)
-    first = np.flatnonzero(np.r_[True, (i0[1:] != i0[:-1])
-                                 | (i1[1:] != i1[:-1])])
-    end = np.r_[first[1:], n_out]
-    table = np.stack([first, end, i0[first], i1[first]], 1).astype(np.int32)
-    feeds = np.full((n_in, MAX_FEEDS), -1, np.int32)
-    n_feeds = np.zeros(n_in, np.int64)
-    for k, (_, _, src0, src1) in enumerate(table):
-        for tap, i in enumerate((src0, src1)):
-            assert n_feeds[i] < MAX_FEEDS, (n_in, n_out, i)
-            feeds[i, n_feeds[i]] = 2 * k + tap
-            n_feeds[i] += 1
-    return table, feeds
 
 
 _device_cells: Dict[tuple, tuple] = {}
@@ -194,8 +186,9 @@ def _cells_on(device, h: int, H: int, w: int, W: int):
 @functools.lru_cache(maxsize=None)
 def _kernel_fns():
     """(forward, backward) entry points with their C signatures:
-    fwd(z, tz, labels, label_bytes, 6 tap tables, ce_part, kd_part,
-        B, h, w, C, Co, H, W, old_cl, ce_mode, kd_mode, alpha, stream)
+    fwd(z, tz, labels, label_bytes, 6 tap tables, y cells, x cells,
+        ce_part, kd_part, B, h, w, C, Co, H, W, old_cl, ce_mode, kd_mode,
+        ncy, ncx, alpha, stream)
     bwd(z, tz, labels, label_bytes, 6 tap tables, 4 cell tables, coefs,
         part, dz, B, h, w, C, Co, H, W, old_cl, ce_mode, kd_mode, ncy, ncx,
         alpha, stream)."""
@@ -203,7 +196,7 @@ def _kernel_fns():
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fwd, bwd = lib.ucd_fused_loss_fwd, lib.ucd_fused_loss_bwd
     fwd.restype = bwd.restype = ctypes.c_int
-    fwd.argtypes = [p, p, p, i] + [p] * 6 + [p, p] + [i] * 10 + [f, p]
+    fwd.argtypes = [p, p, p, i] + [p] * 6 + [p] * 4 + [i] * 12 + [f, p]
     bwd.argtypes = [p, p, p, i] + [p] * 6 + [p] * 4 + [p, p, p] \
         + [i] * 12 + [f, p]
     return fwd, bwd
@@ -259,14 +252,23 @@ def _call(fn, z, tz, labels, H, W, extra_ptrs, old_cl, ce_mode, kd_mode,
 
 def launch_fwd(z, tz, labels, *, old_cl, ce_mode, kd_mode, alpha):
     """Launch the forward kernel on checked CUDA inputs. Returns the (2,
-    n_blocks) per-block partial sums of the CE and the KD term."""
+    n_blocks) per-block partial sums of the CE and the KD term (a block
+    holds FWD_WARPS cells)."""
     B, h, w, C = z.shape
     H, W = int(labels.shape[1]), int(labels.shape[2])
+    Co = tz.shape[-1] if tz is not None else 1
+    if fwd_shared_bytes(C, Co) > MAX_SHARED:
+        raise ValueError(f"the fused_ce_kd forward holds {C} + {Co} classes "
+                         f"in {fwd_shared_bytes(C, Co)} bytes of shared "
+                         f"memory a block, over the card's {MAX_SHARED}")
     fwd, _ = _kernel_fns()
-    n_blocks = B * H * (-(-W // 128))
+    tables = _cells_on(z.device, h, H, w, W)
+    ncy, ncx = tables[0].shape[0], tables[2].shape[0]
+    n_blocks = -(-B * ncy * ncx // FWD_WARPS)
     parts = torch.empty((2, n_blocks), dtype=torch.float32, device=z.device)
-    _call(fwd, z, tz, labels, H, W, (parts[0], parts[1]), old_cl, ce_mode,
-          kd_mode, alpha)
+    _call(fwd, z, tz, labels, H, W, (tables[0], tables[2], parts[0],
+                                     parts[1]), old_cl, ce_mode, kd_mode,
+          alpha, (ncy, ncx))
     with _count_lock:
         fused_ce_kd.launches_fwd += 1
     return parts
