@@ -43,16 +43,33 @@ Phases (any failure exits non-zero, and no result line is printed):
         where it must agree with the train-mode forward;
         plus one f32 ResNet-50 step at 64x64 on the card against the same
         step on the CPU;
+     c. the experiment around the step, through the port's CLI in this
+        process: `run-task` of VOC 15-5 under UCD (ResNet-101, batch 8,
+        512x512, bf16; two incremental steps of one epoch on 16 synthetic
+        images each, with validate, checkpoint and final test; step 1
+        restores its donor from step 0's checkpoint), `export` of the
+        step-1 checkpoint at f32 (its tensors bit for bit) and bf16, and
+        `predict --save_ids` with the bf16 npz on four val images (the id
+        maps equal `predict_labels`); every kernel launches in the phase,
+        B3-B5 only in step 1 and only on the tensor cores, B6 in validate,
+        final test and predict;
   4. time each kernel three ways (its own device time from a
      torch.profiler window, CUDA events around the wrapper calls, the
      host's enqueue time a call) beside its plain version, one library
      call (where one exists) and its roofline bound, the serving throughput
      and the
      train-step throughput under UCD and under MiB at batch 8 (UCD also at
-     16), 512x512, bf16.
+     16), 512x512, bf16; then the experiment loop in steady state (three
+     epochs of 8 UCD iterations through `Experiment.train_epoch`), the
+     train loader alone at 1, 4 and 8 threads, and a checkpoint write,
+     sync and async.
 
-The last three lines of stdout are the `{"kernels": [...]}` record (each
-row's `ms` / `kernel_ms` the device time, `wrapper_ms` the events'), the
+After phase 4 come `{"serving": ...}`, `{"training": ...}` and
+`{"experiment": ...}` (phase 3c's seconds per step, epoch img/s, loader and
+checkpoint times, launches and peak memory, beside phase 4's raw UCD step
+img/s). The last three lines of stdout are the `{"kernels": [...]}` record
+(each row's `ms` / `kernel_ms` the device time, `wrapper_ms` the events',
+`launches_experiment` its launches in phase 3c), the
 card's name and power limit (nvidia-smi), and `{"ok": true, "device": ...}`.
 `--profile DIR` also writes torch.profiler tables of predict_labels and of
 the train step there. `--only kernels` stops after phase 2 and prints no
@@ -62,6 +79,7 @@ result (for bringing a kernel up).
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import importlib.util
 import io
@@ -1148,6 +1166,291 @@ def phase_train_small(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3c: the experiment around the step, through the port's CLI
+# ---------------------------------------------------------------------------
+
+# VOC 15-5 (heads [16] then [16, 5]) under --method UCD at full width: two
+# incremental steps of one epoch on 16 synthetic 512x512 images (two
+# iterations of batch 8 each), validate, save, final test
+EXPERIMENT_ARGS = ["--dataset", "voc", "--task", "15-5", "--method", "UCD",
+                   "--backbone", "resnet101", "--crop_size", str(SIZE),
+                   "--batch_size", str(BATCH), "--epochs", "1",
+                   "--synthetic", "16", "--no_pretrained", "--lr", "0.001",
+                   "--dtype", "bfloat16"]
+
+
+def kernel_counts() -> dict:
+    con = TT.pixel_contrastive_loss_tiled
+    return {"fused_loss_fwd": FL.fused_ce_kd.launches_fwd,
+            "fused_loss_bwd": FL.fused_ce_kd.launches_bwd,
+            "fused_argmax": FE.fused_argmax.launches,
+            "contrastive_pass1": con.launches_pass1,
+            "contrastive_pass2": con.launches_pass2,
+            "contrastive_bwd": con.launches_bwd,
+            "contrastive_pass1_mma": con.launches_pass1_mma,
+            "contrastive_pass2_mma": con.launches_pass2_mma,
+            "contrastive_bwd_mma": con.launches_bwd_mma}
+
+
+def zero_kernel_counts():
+    FL.fused_ce_kd.launches_fwd = FL.fused_ce_kd.launches_bwd = 0
+    FE.fused_argmax.launches = 0
+    con = TT.pixel_contrastive_loss_tiled
+    con.launches_pass1 = con.launches_pass2 = con.launches_bwd = 0
+    con.launches_pass1_mma = con.launches_pass2_mma = 0
+    con.launches_bwd_mma = 0
+
+
+def _delta(after: dict, before: dict) -> dict:
+    return {k: after[k] - before[k] for k in after}
+
+
+class ExperimentWatch:
+    """Observes the CLI's run without changing it: the kernels' launches
+    per incremental step and per eval call, every train iteration's
+    metrics (kept on the device until the run ends), each step's wall time,
+    epoch metrics and checkpoint writes, the donor each step restored, and
+    the host time the train loader takes per batch."""
+
+    def __init__(self):
+        self.steps, self.evals, self.iters, self.saves = {}, [], [], []
+        self.donors, self.epochs, self.loader_ms = {}, {}, None
+        self._patched = []
+
+    def _patch(self, owner, name, make):
+        orig = getattr(owner, name)
+        self._patched.append((owner, name, orig))
+        setattr(owner, name, make(orig))
+
+    def __enter__(self):
+        watch = self
+
+        def run_one_step(orig):
+            def wrapped(cfg, *a, **kw):
+                before, t0 = kernel_counts(), time.perf_counter()
+                score = orig(cfg, *a, **kw)
+                torch.cuda.synchronize()
+                watch.steps[cfg.step] = {
+                    "seconds": time.perf_counter() - t0,
+                    "launches": _delta(kernel_counts(), before),
+                    "mean_iou": score["Mean IoU"]}
+                return score
+            return wrapped
+
+        def run(orig):
+            def wrapped(exp, *a, **kw):
+                step = exp.cfg.step
+                if step == 0:
+                    # the loader alone: decode-free synthetic images through
+                    # the train transform (512x512 random resized crop)
+                    t0, n = time.perf_counter(), 0
+                    for _ in exp.train_loader.epoch(99):
+                        n += 1
+                    watch.loader_ms = (time.perf_counter() - t0) / n * 1e3
+                if exp.old_vars is not None:
+                    watch.donors[step] = {k: v.detach().cpu().clone()
+                                          for k, v in exp.old_vars.items()}
+                inner = exp.train_step
+
+                def recording(state, batch, old_vars=None):
+                    state, m = inner(state, batch, old_vars)
+                    watch.iters.append((step, m))
+                    return state, m
+                exp.train_step = recording
+                out = orig(exp, *a, **kw)
+                watch.epochs[step] = dict(exp.last_train_metrics)
+                return out
+            return wrapped
+
+        def validate(orig):
+            def wrapped(exp, loader=None):
+                before = kernel_counts()
+                out = orig(exp, loader)
+                watch.evals.append(
+                    ("final_test" if loader is not None else "validate",
+                     exp.cfg.step, _delta(kernel_counts(), before)))
+                return out
+            return wrapped
+
+        def save(orig):
+            def wrapped(path, *a, **kw):
+                t0 = time.perf_counter()
+                orig(path, *a, **kw)
+                watch.saves.append((path, time.perf_counter() - t0))
+            return wrapped
+
+        from ucd_torch import cli as CLI
+        from ucd_torch.engine import checkpoint as CK
+        from ucd_torch.engine import experiment as EX
+        self._patch(CLI, "_run_one_step", run_one_step)
+        self._patch(EX.Experiment, "run", run)
+        self._patch(EX.Experiment, "validate", validate)
+        self._patch(CK, "save_checkpoint", save)
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, orig in reversed(self._patched):
+            setattr(owner, name, orig)
+        return False
+
+
+def phase_experiment(dev, where) -> dict:
+    """The port's CLI on the card: `run-task` of VOC 15-5 under UCD at
+    full width (two incremental steps, the second restoring its donor from
+    the first's checkpoint), `export` of the step-1 checkpoint at f32 (its
+    tensors bit for bit) and bf16, and `predict --save_ids` with the bf16
+    npz on four val images (the id maps equal `predict_labels` of the same
+    model on the same images). B1-B6 each launch in the phase; B3-B5 only
+    in step 1 and only as the tensor-core variant; B6 in validate,
+    final_test and predict."""
+    from ucd_torch import cli as CLI
+    from ucd_torch.data import SyntheticSegmentation
+    from ucd_torch.engine import checkpoint as CK
+    from PIL import Image
+
+    with tempfile.TemporaryDirectory() as tmp:
+        logs, ckdir = os.path.join(tmp, "logs"), os.path.join(tmp, "ckpt")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        out = io.StringIO()
+        # ---- the main path: counts set to 0 here, read right after it ----
+        zero_kernel_counts()
+        with ExperimentWatch() as watch:
+            t0 = time.perf_counter()
+            with contextlib.redirect_stdout(out):
+                rc = CLI.main(["run-task", *EXPERIMENT_ARGS, "--device",
+                               dev.type, "--logdir", logs, "--ckpt_dir",
+                               ckdir])
+            task_s = time.perf_counter() - t0
+        assert rc == 0, rc
+        train_counts = kernel_counts()
+        text = out.getvalue()
+        steps = [json.loads(ln) for ln in text.splitlines()
+                 if ln.startswith('{"step"')]
+        assert [s["step"] for s in steps] == [0, 1], text[-2000:]
+        assert "Final mIoU" in text, text[-2000:]
+        for ln in text.splitlines():
+            if "End of Epoch" in ln or "[!]" in ln:
+                log("[experiment] " + ln)
+        log("[experiment] run-task: " + json.dumps(steps) + "; "
+            + " / ".join(ln for ln in text.splitlines()
+                         if ln.startswith(("Final mIoU", "All-step"))))
+        ck = [os.path.join(ckdir, f"15-5-voc_Experiment_{s}") for s in (0, 1)]
+        for p in ck:
+            assert os.path.isfile(p), p
+        ck_bytes = os.path.getsize(ck[1])
+
+        # step 1 restored its donor from step 0's checkpoint, bit for bit
+        donor = CK.state_dict_of(CK.load_model_state(ck[0]))
+        assert set(watch.donors) == {1}, set(watch.donors)
+        assert set(donor) == set(watch.donors[1])
+        for k, v in donor.items():
+            assert torch.equal(v, watch.donors[1][k]), k
+        metrics = [(s, {k: float(v) for k, v in m.items()})
+                   for s, m in watch.iters]
+        assert [s for s, _ in metrics] == [0, 0, 1, 1], metrics
+        for s, m in metrics:
+            assert all(np.isfinite(v) for v in m.values()), (s, m)
+            assert (m["l_con"] > 0) == (s == 1), (s, m)
+        # the kernels of each step, each eval call
+        s0, s1 = watch.steps[0]["launches"], watch.steps[1]["launches"]
+        for k in ("contrastive_pass1", "contrastive_pass2",
+                  "contrastive_bwd"):
+            assert s0[k] == 0 and s1[k] == 2 and s1[k + "_mma"] == 2, (
+                k, s0, s1)
+        for s in (s0, s1):
+            assert s["fused_loss_fwd"] >= 2 and s["fused_loss_bwd"] == 2, s
+        kinds = {(kind, step) for kind, step, d in watch.evals
+                 if d["fused_argmax"] > 0}
+        assert kinds == {("validate", 0), ("final_test", 0),
+                         ("validate", 1), ("final_test", 1)}, watch.evals
+
+        # export the step-1 checkpoint, f32 and bf16
+        npz = {d: os.path.join(tmp, f"m_{d}.npz")
+               for d in ("float32", "bfloat16")}
+        saved = CK.state_dict_of(CK.load_model_state(ck[1]))
+        backbone = EXPERIMENT_ARGS[EXPERIMENT_ARGS.index("--backbone") + 1]
+        for d, path in npz.items():
+            extra = ["--export_dtype", "float32"] if d == "float32" else []
+            with contextlib.redirect_stdout(io.StringIO()):
+                assert CLI.main(["export", "--ckpt", ck[1], "--out", path,
+                                 "--task", "15-5", "--step", "1",
+                                 "--backbone", backbone, "--device",
+                                 dev.type, *extra]) == 0
+        m32, meta = load_inference(npz["float32"], device=dev)
+        assert meta["classes"] == [16, 5] and meta["dtype"] == "float32"
+        n_equal = 0
+        for k, v in m32.state_dict().items():
+            if k.endswith("num_batches_tracked"):
+                continue
+            assert v.dtype == saved[k].dtype and torch.equal(
+                v.cpu(), saved[k]), k
+            n_equal += 1
+        del m32
+
+        # predict --save_ids with the bf16 npz on four val images
+        val = SyntheticSegmentation(n=4, size=SIZE, n_classes=21,
+                                    seed=C.Config.random_seed + 1000)
+        img_dir, pred_dir = os.path.join(tmp, "imgs"), os.path.join(
+            tmp, "preds")
+        os.makedirs(img_dir)
+        for i in range(4):
+            Image.fromarray(val.images[i]).save(
+                os.path.join(img_dir, f"val{i}.png"))
+        before = kernel_counts()
+        with contextlib.redirect_stdout(io.StringIO()):
+            assert CLI.main(["predict", "--model", npz["bfloat16"],
+                             "--images", img_dir, "--out", pred_dir,
+                             "--bucket", str(SIZE), "--save_ids",
+                             "--device", dev.type]) == 0
+        predict_launches = _delta(kernel_counts(), before)
+        assert predict_launches["fused_argmax"] >= 1, predict_launches
+        counts = kernel_counts()
+        # ------------------------------------------------------------------
+        m16, _ = load_inference(npz["bfloat16"], device=dev)
+        want = Predictor(m16, device=dev).predict_labels(
+            val.images).cpu().numpy()
+        for i in range(4):
+            ids = np.asarray(Image.open(os.path.join(pred_dir,
+                                                     f"val{i}_ids.png")))
+            assert np.array_equal(ids, want[i]), (i, (ids != want[i]).sum())
+            assert os.path.exists(os.path.join(pred_dir, f"val{i}_color.png"))
+        del m16
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    for name in ("fused_loss_fwd", "fused_loss_bwd", "fused_argmax",
+                 "contrastive_pass1", "contrastive_pass2", "contrastive_bwd"):
+        assert counts[name] > 0, (name, counts)
+    for k in ("pass1", "pass2", "bwd"):
+        assert counts[f"contrastive_{k}_mma"] == counts[f"contrastive_{k}"]
+    r = {"task": "voc 15-5, UCD, ResNet-101, batch 8, 512x512, bf16",
+         "task_s": task_s,
+         "seconds_per_step": [watch.steps[s]["seconds"] for s in (0, 1)],
+         "images_per_s": [watch.epochs[s]["images_per_s"] for s in (0, 1)],
+         "epoch_time_s": [watch.epochs[s]["epoch_time_s"] for s in (0, 1)],
+         "data_wait_s": [watch.epochs[s]["data_wait_s"] for s in (0, 1)],
+         "loader_ms_per_batch": watch.loader_ms,
+         "checkpoint_save_s": [t for _, t in watch.saves],
+         "checkpoint_bytes": ck_bytes,
+         "mean_iou": [s["mean_iou"] for s in steps],
+         "f32_export_tensors_equal": n_equal,
+         "launches": counts, "launches_train_run_task": train_counts,
+         "launches_predict": predict_launches,
+         "peak_mem_gb": peak_gb}
+    log(f"[experiment] on {where}: run-task {task_s:.1f} s (steps "
+        f"{r['seconds_per_step'][0]:.1f} / {r['seconds_per_step'][1]:.1f} s),"
+        f" epoch img/s {r['images_per_s'][0]:.2f} / "
+        f"{r['images_per_s'][1]:.2f}, loader {watch.loader_ms:.1f} ms per "
+        f"batch alone, checkpoint writes "
+        + ", ".join(f"{t:.2f}" for _, t in watch.saves)
+        + f" s ({ck_bytes / 1e9:.3f} GB each); f32 export holds the "
+        f"checkpoint's {n_equal} tensors bit for bit; predict ids equal "
+        f"predict_labels; launches {json.dumps(counts)}; peak memory "
+        f"{peak_gb:.2f} GB")
+    return r
+
+
+# ---------------------------------------------------------------------------
 # phase 4: timings
 # ---------------------------------------------------------------------------
 
@@ -1487,6 +1790,85 @@ def time_training(dev, tr, where, profile_dir) -> dict:
     return r
 
 
+def time_experiment(dev, where) -> dict:
+    """The experiment loop in steady state, beside phase 4's raw step: a
+    step-1 UCD `Experiment` (VOC 15-5, ResNet-101, batch 8, 512x512, bf16)
+    over 64 synthetic images, three epochs of 8 iterations through
+    `train_epoch` (img/s, the host's wait for the loader), then one more
+    pass over batches loaded beforehand (no loader threads); the train loader
+    alone at 1, 4 and 8 worker threads; one checkpoint write, synchronous
+    and asynchronous (the time the loop is held)."""
+    from ucd_torch.data import DataLoader, SyntheticSegmentation
+    from ucd_torch.engine import checkpoint as CK
+    from ucd_torch.engine.experiment import Experiment
+
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(dataset="voc", task="15-5", backbone="resnet101",
+                  crop_size=SIZE, batch_size=BATCH, lr=0.001, epochs=3,
+                  pretrained=False, visualize=False, print_interval=1000,
+                  logdir=os.path.join(tmp, "logs"),
+                  ckpt_dir=os.path.join(tmp, "ckpt"))
+        base0 = SyntheticSegmentation(n=BATCH, size=SIZE, n_classes=16,
+                                      seed=1)
+        exp0 = Experiment(C.make_config(step=0, method="FT", **kw),
+                          base_train=base0, base_val=base0, device=dev)
+        exp0.save(0, 0.0)  # the donor of step 1, untrained
+        exp0.close()
+        del exp0
+        base1 = SyntheticSegmentation(n=8 * BATCH, size=SIZE, n_classes=21,
+                                      seed=2)
+        exp = Experiment(C.make_config(step=1, method="UCD", **kw),
+                         base_train=base1, base_val=base1, device=dev)
+        assert len(exp.train_loader) == 8
+        epochs = [exp.train_epoch(e) for e in range(3)]
+        # the same steps over batches loaded beforehand: no loader threads
+        # compete with the step's host work
+        batches = list(exp.train_loader.epoch(3))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for b in batches:
+            exp.state, _ = exp.train_step(exp.state, b, exp.old_vars)
+        torch.cuda.synchronize()
+        preloaded = len(batches) * BATCH / (time.perf_counter() - t0)
+        loader_ms = {}
+        for w in (1, 4, 8):
+            loader = DataLoader(exp.train_dst, BATCH, seed=1, workers=w,
+                                prefetch=0)
+            t0 = time.perf_counter()
+            n = sum(1 for _ in loader.epoch(0))
+            loader_ms[w] = (time.perf_counter() - t0) / n * 1e3
+            loader.close()
+        path = os.path.join(tmp, "ck")
+        save_s = {}
+        for mode in (False, True):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            CK.save_checkpoint(path, exp.state, 0, 0.0, async_write=mode)
+            save_s["async" if mode else "sync"] = time.perf_counter() - t0
+            CK.wait_pending()
+        exp.close()
+    r = {"epoch_img_per_s": [e["images_per_s"] for e in epochs],
+         "epoch_time_s": [e["epoch_time_s"] for e in epochs],
+         "data_wait_s": [e["data_wait_s"] for e in epochs],
+         "loss_tot": [e["loss_tot"] for e in epochs],
+         "preloaded_img_per_s": preloaded,
+         "loader_ms_per_batch_by_workers": loader_ms,
+         "checkpoint_call_s": save_s}
+    log(f"[time] experiment loop, UCD VOC 15-5 step 1, ResNet-101, batch "
+        f"{BATCH}, {SIZE}x{SIZE}, bf16 on {where}: epochs of 8 iterations "
+        + ", ".join(f"{e['images_per_s']:.2f}" for e in epochs)
+        + " img/s (waiting for the loader "
+        + ", ".join(f"{e['data_wait_s']:.3f}" for e in epochs)
+        + " s of " + ", ".join(f"{e['epoch_time_s']:.3f}" for e in epochs)
+        + f" s); over batches loaded beforehand {preloaded:.2f} img/s; "
+        "the loader alone "
+        + ", ".join(f"{v:.1f} ms a batch at {w} threads"
+                    for w, v in loader_ms.items())
+        + f"; a checkpoint write holds the loop {save_s['sync']:.2f} s "
+        f"(sync) / {save_s['async']:.2f} s (async)")
+    return r
+
+
 def time_serving(dev, served, where, profile_dir) -> dict:
     predictor, imgs = served["predictor"], served["imgs"]
     model = served["model"]
@@ -1610,6 +1992,11 @@ def main(argv=None) -> int:
     assert min(counts.values()) > 0, counts
     lap("3b train path")
 
+    # phase 3c: the experiment around the step, through the CLI (it sets
+    # the counts to 0 and reads them)
+    experiment = phase_experiment(dev, where)
+    lap("3c experiment")
+
     # phase 4: timings
     timing = time_fused_argmax(dev, where)
     loss_timing = time_fused_loss(dev, where)
@@ -1618,7 +2005,14 @@ def main(argv=None) -> int:
     log(json.dumps({"serving": {"card": where, **serving}}))
     training = time_training(dev, trained, where, args.profile)
     log(json.dumps({"training": {"card": where, **training}}))
+    loop = time_experiment(dev, where)
     lap("4 timings")
+    log(json.dumps({"experiment": {
+        "card": where, **experiment,
+        "raw_ucd_step_img_per_s": training["img_per_s"],
+        "raw_ucd_step_img_per_s_runs": training["img_per_s_runs"],
+        "steady_state": loop}}))
+    exp_counts = experiment["launches"]
 
     kernels = [{
         "name": "fused_argmax", "route": "cuda",
@@ -1628,6 +2022,7 @@ def main(argv=None) -> int:
         "launches": serve_launches + counts["fused_argmax"],
         "launches_serving": serve_launches,
         "launches_train": counts["fused_argmax"],
+        "launches_experiment": exp_counts["fused_argmax"],
         "max_abs_err": err["max_abs_err"],
         "mismatch_rate": err["mismatch_rate"],
         **timing}]
@@ -1642,6 +2037,7 @@ def main(argv=None) -> int:
             "replaces_fn": f"ucd_tpu/ops/fused_loss.py::{fn}",
             "launches": counts[name], "launches_serving": 0,
             "launches_train": counts[name],
+            "launches_experiment": exp_counts[name],
             "launches_per_train_step":
                 trained["train_counts"][name] / trained["n_steps"],
             "max_abs_err": loss_err[err_key],
@@ -1661,6 +2057,7 @@ def main(argv=None) -> int:
             "replaces_fn": f"ucd_tpu/ops/pallas_contrastive.py::{fn}",
             "launches": counts[name], "launches_serving": 0,
             "launches_train": counts[name],
+            "launches_experiment": exp_counts[name],
             "launches_per_train_step":
                 trained["train_counts"][name] / trained["n_steps"],
             "max_abs_err": con_err[abs_key], "max_rel_err": con_err[rel_key],

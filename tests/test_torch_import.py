@@ -27,6 +27,12 @@ def test_import_pulls_in_no_jax():
         "import ucd_torch.ops.fused_loss, ucd_torch.engine.metrics\n"
         "import ucd_torch.engine.train, ucd_torch.engine.state\n"
         "import ucd_torch.ops.contrastive, ucd_torch.ops.tiled_contrastive\n"
+        "import ucd_torch.data, ucd_torch.data.transforms\n"
+        "import ucd_torch.data.native, ucd_torch.data.incremental\n"
+        "import ucd_torch.data.datasets, ucd_torch.data.loader\n"
+        "import ucd_torch.engine.checkpoint, ucd_torch.engine.logger\n"
+        "import ucd_torch.engine.experiment, ucd_torch.models.pretrained\n"
+        "import ucd_torch.utils.reporting, ucd_torch.utils.viz\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"
@@ -99,10 +105,18 @@ def _imported_modules(path):
 
 
 def test_static_scan_names_no_jax_import():
+    """Every module of the port and chip_smoke.py; of the new modules of
+    the experiment slice, each must be among the scanned files."""
     paths = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, files in os.walk(os.path.join(REPO, "ucd_torch")):
         paths += [os.path.join(root, f) for f in files if f.endswith(".py")]
     assert len(paths) > 10
+    rel = {os.path.relpath(p, REPO) for p in paths}
+    for mod in ("data/transforms", "data/native", "data/incremental",
+                "data/datasets", "data/loader", "engine/checkpoint",
+                "engine/logger", "engine/experiment", "models/pretrained",
+                "utils/reporting"):
+        assert f"ucd_torch/{mod}.py" in rel, mod
     bad = [(os.path.relpath(p, REPO), m) for p in paths
            for m in _imported_modules(p) if m.split(".")[0] in FORBIDDEN]
     assert not bad, bad

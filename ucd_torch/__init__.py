@@ -9,13 +9,23 @@ package.
 Entry points run on CUDA unless the caller passes ``device="cpu"``; asking
 for CUDA on a host without a GPU raises instead of falling back.
 
-Implemented so far: the serving path (`engine.export.load_inference` ->
-`engine.predictor.Predictor` -> `engine.server`), with the fused
-upsample+argmax kernel in `ops/csrc/fused_argmax.cu`; and the train and
-validate steps (`engine.state.build_train_state` ->
-`engine.train.make_train_step` / `make_eval_step`) for the FT / LWF / ILT /
-MiB methods, with the fused upsample+CE/KD forward and backward kernels in
-`ops/csrc/fused_loss.cu`.
+What it implements:
+
+  * serving: `engine.export.load_inference` -> `engine.predictor.Predictor`
+    -> `engine.server`, with the fused upsample+argmax kernel
+    (`ops/csrc/fused_argmax.cu`);
+  * the train and validate steps (`engine.state.build_train_state` ->
+    `engine.train.make_train_step` / `make_eval_step`) for the FT / LWF /
+    ILT / MiB / UCD methods, with the fused upsample+CE/KD forward and
+    backward kernels (`ops/csrc/fused_loss.cu`) and, under UCD, the tiled
+    pixel-contrastive kernels (`ops/csrc/tiled_contrastive.cu` and its
+    tensor-core header);
+  * the experiment around the step: the data pipeline (`data`), step
+    checkpoints with the JAX package's schema and an importer for JAX step
+    checkpoints (`engine.checkpoint`), the `engine.experiment.Experiment`
+    loop, `engine.export.export_inference`, and the
+    train / test / run-task / export / predict / serve command line
+    (`python -m ucd_torch.cli`).
 """
 
 from .device import resolve_device

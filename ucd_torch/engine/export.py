@@ -3,9 +3,9 @@
 Counterpart of ucd_tpu/engine/export.py. `load_inference` reads the same
 self-describing `ucd_tpu.inference.v1` npz the JAX package exports, so one
 file serves both packages: bf16 leaves are stored as uint16 bit patterns
-and decode without ml_dtypes. `save_inference` writes that format from a
-port model (the checkpoint-to-npz `export_inference` comes with the
-checkpoint module, in the train slice).
+and decode without ml_dtypes. `export_inference` packs a step checkpoint
+of the port into that format (the class list read off the checkpoint's
+`cls_*` heads), and `save_inference` writes it from a live port model.
 
 `predict_paths` runs the Predictor over image files, padding each image up
 to a spatial bucket and batching same-bucket images per device call.
@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Sequence, Tuple
+from typing import Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -68,37 +68,88 @@ def load_inference(path: str, device=None):
     return model, meta
 
 
-def save_inference(model: IncrementalSegmentationModel, out_path: str,
-                   dataset: str = "voc",
-                   export_dtype: str = "bfloat16") -> dict:
-    """Port model -> inference npz in the JAX package's format: float
-    params cast to `export_dtype`, BN running statistics kept f32, the
-    architecture in an embedded JSON header. Returns the meta dict (with
-    the written path under "path")."""
+def _write_npz(sd, out_path: str, export_dtype: str, dataset: str,
+               **arch) -> dict:
+    """A state_dict -> inference npz: float params cast to `export_dtype`
+    (bf16 as uint16 bit patterns), BN running statistics kept f32, the
+    architecture `arch` in an embedded JSON header."""
     flat, bf16_keys = {}, []
-    for k, v in state_dict_to_flax(model.state_dict()).items():
-        if export_dtype == "bfloat16" and k.startswith("params/"):
-            v = _bf16_bits(v)
-            bf16_keys.append(k)
+    for k, v in state_dict_to_flax(sd).items():
+        if k.startswith("params/"):
+            if export_dtype == "bfloat16":
+                v = _bf16_bits(v)
+                bf16_keys.append(k)
+        else:
+            v = np.asarray(v, np.float32)
         flat[k] = v
-    meta = {
-        "bf16_keys": bf16_keys,
-        "format": FORMAT,
-        "backbone": model.backbone,
-        "output_stride": model.output_stride,
-        "classes": list(model.classes),
-        "head_channels": model.head_channels,
-        "pooling": model.pooling_size,
-        "stem_s2d": False,
-        "dataset": dataset,
-        "dtype": export_dtype,
-    }
+    meta = {"bf16_keys": bf16_keys, "format": FORMAT, **arch,
+            "stem_s2d": False, "dataset": dataset, "dtype": export_dtype}
     flat[_META_KEY] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
     if not out_path.endswith(".npz"):
         out_path += ".npz"  # np.savez appends it silently; keep paths honest
     os.makedirs(os.path.dirname(os.path.abspath(out_path)), exist_ok=True)
     np.savez(out_path, **flat)
     return dict(meta, path=out_path)
+
+
+def save_inference(model: IncrementalSegmentationModel, out_path: str,
+                   dataset: str = "voc",
+                   export_dtype: str = "bfloat16") -> dict:
+    """Port model -> inference npz in the JAX package's format. Returns the
+    meta dict (with the written path under "path")."""
+    return _write_npz(
+        model.state_dict(), out_path, export_dtype,
+        backbone=model.backbone, output_stride=model.output_stride,
+        classes=list(model.classes), head_channels=model.head_channels,
+        pooling=model.pooling_size, dataset=dataset)
+
+
+def _classes_from_params(params) -> Tuple[list, Optional[int]]:
+    """(per-step class counts, head channels) read off the `cls_{i}`
+    classifier weights: the checkpoint, not the flags, says which heads the
+    model has."""
+    steps = sorted({int(k.split(".")[0].split("_", 1)[1]) for k in params
+                    if k.startswith("cls_")})
+    if steps != list(range(len(steps))):
+        raise ValueError(f"non-contiguous classifier heads in checkpoint: "
+                         f"cls_{steps}")
+    classes, head_ch = [], None
+    for i in steps:
+        w = params[f"cls_{i}.weight"]  # (classes, head channels, 1, 1)
+        classes.append(int(w.shape[0]))
+        head_ch = int(w.shape[1])
+    return classes, head_ch
+
+
+def export_inference(ckpt_path: str, out_path: str, cfg,
+                     export_dtype: str = "bfloat16") -> dict:
+    """Step checkpoint of the port -> standalone inference npz (the JAX
+    package's format: one file serves both packages). Returns the meta dict
+    (with the written path under "path").
+
+    Float params are cast to `export_dtype`; BN statistics stay f32. The
+    per-step class list and the head width come from the checkpoint's
+    classifier weights; `cfg` supplies what the weights cannot express
+    (backbone name, output stride, pooling, palette)."""
+    from .checkpoint import check_schema, load_checkpoint, state_dict_of
+
+    raw = load_checkpoint(ckpt_path)
+    if raw is None:
+        raise FileNotFoundError(f"no checkpoint at {ckpt_path!r}")
+    check_schema(raw, ckpt_path)
+    ms = raw["model_state"]
+    classes, head_channels = _classes_from_params(ms["params"])
+    if not classes:
+        raise ValueError(f"checkpoint at {ckpt_path!r} has no cls_* heads")
+    if list(cfg.classes_per_step) != classes:
+        print(f"[export] note: checkpoint has per-step classes {classes} "
+              f"(flags implied {list(cfg.classes_per_step)}); "
+              "using the checkpoint's")
+    return _write_npz(
+        state_dict_of(ms), out_path, export_dtype, backbone=cfg.backbone,
+        output_stride=cfg.output_stride, classes=classes,
+        head_channels=head_channels, pooling=cfg.pooling,
+        dataset=cfg.dataset)
 
 
 def _bucket_hw(h: int, w: int, multiple: int) -> Tuple[int, int]:

@@ -4,7 +4,7 @@ Counterpart of ucd_tpu/engine/metrics.py. The per-batch histogram is
 computed on the tensors' device inside the validate step; the host only
 sees the accumulated matrix. `results_from_confusion` gives Overall / Mean
 Acc, FreqW Acc, Mean IoU and the per-class breakdowns, with the "X"
-placeholder for absent classes.
+placeholder for absent classes; `confusion_matrix_figure` draws the matrix.
 """
 
 from __future__ import annotations
@@ -101,3 +101,27 @@ class AverageMeter:
     def get_results(self, key):
         rec = self.book[key]
         return rec[0] / rec[1]
+
+
+def confusion_matrix_figure(hist, save_path: str = None):
+    """Row-normalized confusion-matrix heatmap. Returns the matplotlib
+    figure and saves a PNG when `save_path` is given. matplotlib is
+    imported here, under the Agg backend, so a headless host works."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    if isinstance(hist, torch.Tensor):
+        hist = hist.detach().cpu().numpy()
+    hist = np.asarray(hist, np.float64)
+    cm = hist / (hist.sum(axis=1, keepdims=True) + 1e-6)
+    fig, ax = plt.subplots()
+    im = ax.imshow(cm, interpolation="nearest", cmap=plt.cm.viridis)
+    ax.figure.colorbar(im, ax=ax)
+    ax.set(title="Confusion Matrix", ylabel="True label",
+           xlabel="Predicted label")
+    fig.tight_layout()
+    if save_path is not None:
+        fig.savefig(save_path)
+        plt.close(fig)
+    return fig

@@ -1,7 +1,8 @@
-"""Dataset palettes and palettized PNG output.
+"""Dataset palettes, palettized PNG output and the visualization helpers.
 
-Copies of the palettes and helpers of ucd_tpu/utils/viz.py used by the
-serving path. The color tables are public dataset palettes (the VOC
+Copies of the palettes and helpers of ucd_tpu/utils/viz.py: the serving
+path's palettized PNGs, and the panels, label colouring and attention maps
+that `Experiment.validate` and `Experiment.visualize` write. The color tables are public dataset palettes (the VOC
 dev-kit bit-twiddle generation, the standard ADE20K palette, the standard
 Cityscapes palette).
 """
@@ -9,6 +10,8 @@ Cityscapes palette).
 from __future__ import annotations
 
 import numpy as np
+
+from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
 
 ADE_COLORS = [
     (0,0,0), (120,120,120), (180,120,120), (6,230,230), (80,50,50), (4,200,3),
@@ -108,3 +111,50 @@ def palette_png(ids_u8: np.ndarray, cmap: np.ndarray):
     im = Image.frombytes("P", (ids.shape[1], ids.shape[0]), ids.tobytes())
     im.putpalette(cmap.reshape(-1).tobytes())
     return im
+
+
+class Label2Color:
+    """Label map -> RGB image through a palette."""
+
+    def __init__(self, cmap: np.ndarray):
+        self.cmap = cmap
+
+    def __call__(self, lbls: np.ndarray) -> np.ndarray:
+        return self.cmap[np.clip(lbls, 0, len(self.cmap) - 1)]
+
+
+class Denormalize:
+    """Undo the ImageNet normalization for visualization (NHWC numpy)."""
+
+    def __init__(self, mean=IMAGENET_MEAN, std=IMAGENET_STD):
+        self.mean = np.asarray(mean, np.float32)
+        self.std = np.asarray(std, np.float32)
+
+    def __call__(self, img: np.ndarray) -> np.ndarray:
+        return np.clip(img * self.std + self.mean, 0.0, 1.0)
+
+
+def attention_map(body_features: np.ndarray, out_size) -> np.ndarray:
+    """Per-image spatial attention a = norm(sum_c f_c^2) of NHWC features,
+    upsampled to `out_size` (PIL bilinear on the f32 map)."""
+    from PIL import Image
+
+    a = np.sum(np.asarray(body_features, np.float32) ** 2, axis=-1)  # B,h,w
+    norm = np.sqrt((a ** 2).sum(axis=(1, 2), keepdims=True))
+    a = a / np.maximum(norm, 1e-12)
+    return np.stack([
+        np.asarray(Image.fromarray(ai).resize(
+            (out_size[1], out_size[0]), Image.BILINEAR))
+        for ai in a])
+
+
+def compose_sample_png(image_norm: np.ndarray, target: np.ndarray,
+                       pred: np.ndarray, dataset: str) -> np.ndarray:
+    """Side-by-side (input | GT | prediction) uint8 panel."""
+    l2c = Label2Color(color_map(dataset))
+    if image_norm.dtype == np.uint8:
+        # device-normalize pipeline: the host-side image is raw RGB already
+        img = image_norm
+    else:
+        img = (Denormalize()(image_norm) * 255).astype(np.uint8)
+    return np.concatenate([img, l2c(target), l2c(pred)], axis=1)
