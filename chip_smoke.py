@@ -53,6 +53,19 @@ Phases (any failure exits non-zero, and no result line is printed):
         maps equal `predict_labels`); every kernel launches in the phase,
         B3-B5 only in step 1 and only on the tensor cores, B6 in validate,
         final test and predict;
+     d. K train steps a call: from one snapshot of 3b's state, 12 UCD
+        steps eagerly (twice) and through make_train_bundle(k=4), one step
+        captured in a CUDA graph and replayed, and once more with eager
+        steps between bundle calls, under torch.use_deterministic_algorithms
+        (an op without a deterministic kernel is named): the same bits in
+        every parameter, statistic, momentum buffer, count and per-step
+        metric, B1-B5 once a step in the replays' tally; nan_guard's select
+        on CUDA tensors;
+     e. the other method families at full width: RW over VOC 15-5s step 0
+        -> 1 (3 iterations each; step 0's export feeds step 1's importance;
+        `l_reg` > 0; B1/B2 only) and its k=3 bundle bit for bit, one LWF-MC
+        step (iCaRL's dense BCE criterion, no fused kernel), and one f32
+        ResNet-50 RW step on the card against the CPU;
   4. time each kernel three ways (its own device time from a
      torch.profiler window, CUDA events around the wrapper calls, the
      host's enqueue time a call) beside its plain version, one library
@@ -60,14 +73,19 @@ Phases (any failure exits non-zero, and no result line is printed):
      and the
      train-step throughput under UCD and under MiB at batch 8 (UCD also at
      16), 512x512, bf16; then the experiment loop in steady state (three
-     epochs of 8 UCD iterations through `Experiment.train_epoch`), the
-     train loader alone at 1, 4 and 8 threads, and a checkpoint write,
-     sync and async.
+     epochs of 8 UCD iterations through `Experiment.train_epoch`, at
+     steps_per_call 1 and 4), the train loader alone at 1, 4 and 8
+     threads, a checkpoint write, sync and async; the UCD step eager
+     against captured at K = 1, 4, 8 (img/s, device busy and idle share,
+     capture seconds, memory); and a capture that must fail (a step that
+     synchronizes, in a process of its own) ending its process non-zero.
 
-After phase 4 come `{"serving": ...}`, `{"training": ...}` and
-`{"experiment": ...}` (phase 3c's seconds per step, epoch img/s, loader and
-checkpoint times, launches and peak memory, beside phase 4's raw UCD step
-img/s). The last three lines of stdout are the `{"kernels": [...]}` record
+After phase 4 come `{"serving": ...}`, `{"training": ...}`, `{"bundle":
+...}` (phase 3d's verdict and launches, the eager-vs-captured timing, the
+failing capture, the loop at steps_per_call 1 and 4), `{"families": ...}`
+and `{"experiment": ...}` (phase 3c's seconds per step, epoch img/s, loader
+and checkpoint times, launches and peak memory, beside phase 4's raw UCD
+step img/s). The last three lines of stdout are the `{"kernels": [...]}` record
 (each row's `ms` / `kernel_ms` the device time, `wrapper_ms` the events',
 `launches_experiment` its launches in phase 3c), the
 card's name and power limit (nvidia-smi), and `{"ok": true, "device": ...}`.
@@ -91,10 +109,15 @@ import tempfile
 import threading
 import time
 import urllib.request
+import warnings
 
-import numpy as np
-import torch
-import torch.nn.functional as F
+# cuBLAS takes a fixed workspace, so that the bundle phase may run under
+# torch.use_deterministic_algorithms (read when cuBLAS starts)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+
+import numpy as np  # noqa: E402
+import torch  # noqa: E402
+import torch.nn.functional as F  # noqa: E402
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
@@ -107,8 +130,10 @@ from ucd_torch.engine.predictor import Predictor  # noqa: E402
 from ucd_torch.engine.server import (MicroBatcher, make_server,  # noqa: E402
                                      shutdown_server)
 from ucd_torch.engine.state import build_train_state  # noqa: E402
-from ucd_torch.engine.train import (compute_train_losses,  # noqa: E402
-                                    make_eval_step, make_train_step)
+from ucd_torch.engine.train import (_launch_counters,  # noqa: E402
+                                    compute_train_losses, make_eval_step,
+                                    make_optimizer, make_train_bundle,
+                                    make_train_step)
 from ucd_torch.models import (IncrementalSegmentationModel,  # noqa: E402
                               make_model)
 from ucd_torch.models.segmentation import resize_bilinear  # noqa: E402
@@ -116,6 +141,7 @@ from ucd_torch.ops import build  # noqa: E402
 from ucd_torch.ops import contrastive as CT  # noqa: E402
 from ucd_torch.ops import fused_eval as FE  # noqa: E402
 from ucd_torch.ops import fused_loss as FL  # noqa: E402
+from ucd_torch.ops import regularizers as R  # noqa: E402
 from ucd_torch.ops import tiled_contrastive as TT  # noqa: E402
 
 # the kernel timers (device time from the profiler, host enqueue time),
@@ -1166,6 +1192,448 @@ def phase_train_small(dev):
 
 
 # ---------------------------------------------------------------------------
+# phase 3d: K train steps a call through a CUDA graph (make_train_bundle)
+# ---------------------------------------------------------------------------
+
+BUNDLE_STEPS, BUNDLE_K = 12, 4
+TRAIN_COUNTERS = ("fused_loss_fwd", "fused_loss_bwd", "contrastive_pass1",
+                  "contrastive_pass2", "contrastive_bwd")
+
+
+def state_tensors(state, model) -> dict:
+    """Every tensor of the train state by name: parameters and buffers,
+    momentum, the optimizer's counts, the call count and the regularizer's
+    accumulators."""
+    out = {f"model.{k}": v for k, v in model.state_dict().items()}
+    opt = state.opt_state
+    out.update({f"trace.{k}": v for k, v in opt["trace"].items()})
+    out.update(count=opt["count"], nonfinite=opt["nonfinite"],
+               step=state.step)
+    rs = state.reg_state
+    if rs is not None:
+        out["reg.count"] = rs.count
+        for field in R.MEMBER_FIELDS:
+            for k, v in (getattr(rs, field) or {}).items():
+                out[f"reg.{field}.{k}"] = v
+    return out
+
+
+def snapshot(state, model) -> dict:
+    return {k: v.detach().clone() for k, v in
+            state_tensors(state, model).items()}
+
+
+@torch.no_grad()
+def restore(state, model, snap):
+    """Copy `snap` into the live state's own tensors (a captured step keeps
+    reading them)."""
+    for k, v in state_tensors(state, model).items():
+        v.copy_(snap[k])
+
+
+def stacked(batches):
+    return {key: np.stack([b[key] for b in batches]) for key in batches[0]}
+
+
+def run_steps(step, bundle, k, state, batches, old_vars, plan):
+    """Train over `batches` by `plan`, a string of "e" (one eager step)
+    and "b" (one bundle call of k steps). Returns the per-step metrics,
+    (n, keys) in sorted key order."""
+    rows, i = [], 0
+    for what in plan:
+        if what == "e":
+            _, m = step(state, batches[i], old_vars)
+            rows.append(torch.stack([m[key] for key in sorted(m)])[None])
+            i += 1
+        else:
+            _, m = bundle(state, stacked(batches[i:i + k]), old_vars)
+            rows.append(torch.stack([m[key] for key in sorted(m)], dim=1))
+            i += k
+    assert i == len(batches), (i, len(batches))
+    return torch.cat(rows)
+
+
+def compare_runs(ref, other, spread=None) -> list:
+    """Names where `other` differs from `ref` (dicts of tensors): in any bit,
+    or, given `spread` (the largest |difference| of two eager runs by
+    name), by more than that spread."""
+    bad = []
+    for k, v in ref.items():
+        if spread is None:
+            if not torch.equal(v, other[k]):
+                bad.append(k)
+        elif float((v.double() - other[k].double()).abs().max()) \
+                > spread[k]:
+            bad.append(k)
+    return bad
+
+
+def spread_of(a, b) -> dict:
+    return {k: float((v.double() - b[k].double()).abs().max())
+            for k, v in a.items()}
+
+
+@contextlib.contextmanager
+def deterministic():
+    """torch.use_deterministic_algorithms (warn_only: an op without a
+    deterministic implementation warns and is named) and cuDNN's
+    deterministic algorithms, for the bit comparisons only."""
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            yield caught
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = False
+
+
+def nondeterministic_ops(caught) -> list:
+    return sorted({str(w.message).split(" does not have")[0]
+                   for w in caught
+                   if "does not have a deterministic" in str(w.message)})
+
+
+def bits_eager_vs_bundle(step, bundle, k, state, model, batches, old_vars,
+                         plans) -> dict:
+    """From one snapshot of the state: the eager run twice, then each
+    bundled plan of `plans` (name -> plan), every run restored to the
+    snapshot first. With two eager runs bit-equal and no op named
+    nondeterministic, every plan must give the same bits as the eager run
+    in every state tensor and per-step metric; otherwise it must stay
+    within the two eager runs' spread (and the run names why). Returns
+    the plans' launch counts, the mismatches and the deterministic
+    verdict."""
+    n = len(batches)
+    snap = snapshot(state, model)
+    with deterministic() as caught:
+        runs = {}
+        for name, plan in (("eager", "e" * n), ("eager_again", "e" * n),
+                           *plans.items()):
+            restore(state, model, snap)
+            before = kernel_counts()
+            m = run_steps(step, bundle, k, state, batches, old_vars, plan)
+            torch.cuda.synchronize()
+            runs[name] = ({**snapshot(state, model), "metrics": m},
+                          _delta(kernel_counts(), before))
+        restore(state, model, snap)
+    ops = nondeterministic_ops(caught)
+    ref, again = runs["eager"][0], runs["eager_again"][0]
+    eager_diff = compare_runs(ref, again)
+    exact = not ops and not eager_diff
+    spread = None if exact else spread_of(ref, again)
+    out = {"exact": exact, "nondeterministic_ops": ops,
+           "eager_vs_eager_differs": eager_diff[:20],
+           "n_tensors": len(ref) - 1, "n_steps": n}
+    for name in plans:
+        bad = compare_runs(ref, runs[name][0], spread)
+        assert not bad, (f"{name}: {len(bad)} tensors differ from the eager "
+                         f"run ({'bits' if exact else 'beyond the spread'})"
+                         f": {bad[:10]}")
+        out[f"launches_{name}"] = runs[name][1]
+    return out
+
+
+def phase_bundle(dev, tr) -> dict:
+    """12 full-width UCD steps (phase 3b's model and state, VOC 15-5s step
+    1, ResNet-101, batch 8, 512x512, bf16 with f32 masters) eagerly and
+    through make_train_bundle(k=4) from one snapshot, with the same bits in
+    every parameter, BN statistic, momentum buffer, count and per-step
+    metric; B1-B5 once per step in the replays' tally; and again with an
+    eager step between two bundle calls. Then nan_guard's select on the
+    card."""
+    cfg, model, model_old = tr["cfg"], tr["model"], tr["model_old"]
+    state, old_vars = tr["state"], tr["old_vars"]
+    batches = train_batches(BUNDLE_STEPS, BATCH, SIZE, cfg.tot_classes,
+                            seed=110)
+    step = make_train_step(cfg, model, model_old, total_iters=100)
+    bundle = make_train_bundle(cfg, model, model_old, total_iters=100,
+                               k=BUNDLE_K)
+    # bundle, bundle, bundle; then bundle, eager, bundle, eager x 3
+    res = bits_eager_vs_bundle(
+        step, bundle, BUNDLE_K, state, model, batches, old_vars,
+        {"bundle": "bbb", "interleaved": "bebeee"})
+    for name, n in (("bundle", BUNDLE_STEPS), ("interleaved", BUNDLE_STEPS)):
+        counts = res[f"launches_{name}"]
+        for key in TRAIN_COUNTERS + ("contrastive_pass1_mma",
+                                     "contrastive_pass2_mma",
+                                     "contrastive_bwd_mma"):
+            assert counts[key] == n, (name, key, counts)
+        assert counts["fused_argmax"] == 0, counts
+    cap = bundle.capture
+    res["capture_s"] = cap.capture_s
+    res["launches_per_replay"] = dict(zip(
+        [f"{fn.__name__}.{a}" for fn, a in _launch_counters()],
+        cap.launches))
+    log(f"[bundle] {BUNDLE_STEPS} UCD steps eager and through "
+        f"make_train_bundle(k={BUNDLE_K}) from one snapshot: "
+        + (f"the same bits in all {res['n_tensors']} state tensors and "
+           f"every per-step metric" if res["exact"] else
+           f"within the spread of two eager runs (nondeterministic ops: "
+           f"{res['nondeterministic_ops']}; eager runs differ at "
+           f"{res['eager_vs_eager_differs']})")
+        + f", also with eager steps between bundle calls; launches in the "
+        f"replays' tally {json.dumps(res['launches_bundle'])}; capture "
+        f"{cap.capture_s:.3f} s")
+    del bundle, cap
+    res["nan_guard"] = check_nan_guard(dev)
+    return res
+
+
+def check_nan_guard(dev) -> dict:
+    """The optimizer's non-finite select on CUDA tensors: a NaN and an
+    -inf gradient are skipped (parameters, momentum and count unchanged,
+    the skip count up), a finite gradient of 3e38 is applied and resets
+    the skip count."""
+    cfg = C.make_config(**dict(TRAIN, nan_guard=True))
+    tx = make_optimizer(cfg, 100)
+    g = torch.Generator().manual_seed(3)
+    params = {k: torch.randn(shape, generator=g).to(dev) for k, shape in
+              (("a", (64, 3)), ("b", (1000,)))}
+    opt = tx.init(params)
+    seen = []
+    for bad in (float("nan"), float("-inf"), 3e38):
+        grads = {k: torch.randn(p.shape, generator=g).to(dev)
+                 for k, p in params.items()}
+        grads["b"][17] = bad
+        before = {k: v.clone() for k, v in params.items()}
+        tx.update(params, grads, opt)
+        same = all(torch.equal(before[k], params[k]) for k in params)
+        seen.append((same, int(opt["count"]), int(opt["nonfinite"])))
+    assert seen == [(True, 0, 1), (True, 0, 2), (False, 1, 0)], seen
+    log(f"[bundle] nan_guard on the card: NaN and -inf gradients skipped, "
+        f"a finite 3e38 applied: (unchanged, count, skips) {seen}")
+    return {"skips": seen}
+
+
+CAPTURE_FAILURE = r"""
+import sys, torch
+sys.path.insert(0, sys.argv[1])
+from ucd_torch import config as C
+from ucd_torch.engine.state import build_train_state
+from ucd_torch.engine.train import make_train_bundle
+from ucd_torch.models import make_model
+from ucd_torch.ops import fused_loss as FL
+import numpy as np
+cfg = C.make_config(dataset="voc", task="15-5s", step=0, method="FT",
+                    backbone="resnet50", batch_size=2, crop_size=64,
+                    dtype="float32")
+model = make_model(cfg)
+state, _ = build_train_state(cfg, model, torch.Generator().manual_seed(0),
+                             10, device="cuda")
+real = FL.launch_fwd
+def syncing(*a, **kw):
+    torch.cuda.synchronize()  # not allowed while a stream captures
+    return real(*a, **kw)
+FL.launch_fwd = syncing
+rs = np.random.RandomState(0)
+batches = {"image": rs.randint(0, 256, (2, 2, 64, 64, 3)).astype(np.uint8),
+           "label": rs.randint(0, 16, (2, 2, 64, 64)).astype(np.uint8)}
+make_train_bundle(cfg, model, None, 10, k=2)(state, batches)
+print("NO FAILURE")
+"""
+
+
+def check_capture_failure() -> dict:
+    """A bundle whose step synchronizes with the host (which a capture
+    refuses) in a process of its own: the capture's error ends it with a
+    non-zero exit, naming the capture; nothing falls back to eager."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-c", CAPTURE_FAILURE,
+         os.path.dirname(os.path.abspath(__file__))],
+        capture_output=True, text=True, timeout=600)
+    msg = [ln for ln in out.stderr.splitlines()
+           if "CUDA-graph capture of the train step failed" in ln]
+    assert out.returncode != 0 and msg and "NO FAILURE" not in out.stdout, (
+        out.returncode, out.stdout[-2000:], out.stderr[-3000:])
+    log(f"[bundle] a capture that fails ends its process with exit code "
+        f"{out.returncode}: {msg[-1][:200]}")
+    return {"returncode": out.returncode, "message": msg[-1][:300],
+            "seconds": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
+# phase 3e: the other method families at full width
+# ---------------------------------------------------------------------------
+
+FAMILY_ITERS = 3
+
+
+def finite_terms(history, what):
+    for i, m in enumerate(history):
+        assert all(np.isfinite(v) for v in m.values()), (what, i, m)
+
+
+def phase_families(dev) -> dict:
+    """RW at full width (ResNet-101, batch 8, 512x512, bf16 with f32
+    masters): 3 iterations of VOC 15-5s step 0, its `export_state` fed to
+    step 1's `init_reg_state`, 3 iterations of step 1 (every term finite,
+    `l_reg` > 0 once the parameters left the donor's, B1/B2 once per step
+    in ce mode, no contrastive kernel), and the same 3 step-1 iterations
+    through make_train_bundle(k=3) with the same bits; one LWF-MC step
+    (iCaRL's dense BCE criterion and term, no fused kernel) finite and
+    moving the parameters; one f32 ResNet-50 RW step on the card against
+    the CPU."""
+    out = {}
+    cfg0 = C.make_config(**dict(TRAIN, step=0, method="RW"))
+    cfg1 = C.make_config(**dict(TRAIN, method="RW"))
+    assert cfg1.regularizer == "rw" and cfg1.loss_kd == 0
+    batches0 = train_batches(FAMILY_ITERS, BATCH, SIZE, cfg0.tot_classes,
+                             seed=120)
+    batches = train_batches(FAMILY_ITERS, BATCH, SIZE, cfg1.tot_classes,
+                            seed=130)
+    zero_kernel_counts()
+    model0 = make_model(cfg0)
+    state0, _ = build_train_state(cfg0, model0,
+                                  torch.Generator().manual_seed(21),
+                                  total_iters=100, device=dev)
+    step0 = make_train_step(cfg0, model0, None, total_iters=100)
+    hist0 = []
+    for b in batches0:
+        _, m = step0(state0, b)
+        hist0.append({k: float(v) for k, v in m.items()})
+    finite_terms(hist0, "RW step 0")
+    saved = R.export_state(state0.reg_state, state0.params)
+    assert set(saved) == {"score", "fisher"}
+    prev_sd = {k: v.clone() for k, v in model0.state_dict().items()}
+    del model0, state0, step0
+    torch.cuda.empty_cache()
+
+    model = make_model(cfg1)
+    model_old = make_model(cfg1, cfg1.classes_per_step[:-1]).to(
+        device=dev, memory_format=torch.channels_last)
+    state, old_vars = build_train_state(
+        cfg1, model, torch.Generator().manual_seed(22), total_iters=100,
+        prev_model_state=prev_sd, prev_reg_saved=saved, device=dev)
+    rs = state.reg_state
+    assert rs.penalize and float(rs.penalty_w["cls_1.weight"].abs().sum()) \
+        == 0
+    step = make_train_step(cfg1, model, model_old, total_iters=100)
+    snap = snapshot(state, model)
+    hist1 = []
+    for b in batches:
+        _, m = step(state, b, old_vars)
+        hist1.append({k: float(v) for k, v in m.items()})
+    counts = kernel_counts()
+    finite_terms(hist1, "RW step 1")
+    assert hist1[0]["l_reg"] == 0.0 and all(
+        m["l_reg"] > 0 for m in hist1[1:]), hist1
+    n = 2 * FAMILY_ITERS
+    assert counts["fused_loss_fwd"] == counts["fused_loss_bwd"] == n, counts
+    assert counts["contrastive_pass1"] == counts["fused_argmax"] == 0, \
+        counts
+    restore(state, model, snap)
+    bundle = make_train_bundle(cfg1, model, model_old, total_iters=100,
+                               k=FAMILY_ITERS)
+    bits = bits_eager_vs_bundle(step, bundle, FAMILY_ITERS, state, model,
+                                batches, old_vars, {"bundle": "b"})
+    for key in ("fused_loss_fwd", "fused_loss_bwd"):
+        assert bits["launches_bundle"][key] == FAMILY_ITERS, bits
+    out["rw"] = {"step0": hist0, "step1": hist1, "launches": counts,
+                 "bundle": {k: v for k, v in bits.items()
+                            if k != "eager_vs_eager_differs"},
+                 "capture_s": bundle.capture.capture_s}
+    log(f"[families] RW VOC 15-5s step 0 -> 1 at full width, 3 iterations "
+        f"each: step 1 " + ", ".join(
+            f"loss {m['loss']:.5f} l_reg {m['l_reg']:.6g}" for m in hist1)
+        + f"; B1/B2 {counts['fused_loss_fwd']}/{counts['fused_loss_bwd']} "
+        f"launches; bundle(k=3) vs eager: "
+        + ("the same bits" if bits["exact"] else
+           f"within the eager spread ({bits['nondeterministic_ops']}, "
+           f"{bits['eager_vs_eager_differs']})"))
+    del bundle, model, model_old, state, old_vars, step, snap
+    torch.cuda.empty_cache()
+
+    # LWF-MC: iCaRL's BCE criterion and term on the dense path
+    cfg_l = C.make_config(**dict(TRAIN, method="LWF-MC"))
+    model, model_old, state, old_vars = build_train(dev, cfg_l, prev_sd)
+    before = {k: v.clone() for k, v in model.state_dict().items()}
+    zero_kernel_counts()
+    _, m = make_train_step(cfg_l, model, model_old, total_iters=100)(
+        state, batches[0], old_vars)
+    m = {k: float(v) for k, v in m.items()}
+    counts = kernel_counts()
+    finite_terms([m], "LWF-MC")
+    assert m["l_icarl"] > 0 and m["loss"] > 0, m
+    assert set(counts.values()) == {0}, counts
+    moved = [k for k, p in model.named_parameters()
+             if not torch.equal(before[k], p)]
+    assert "cls_1.weight" in moved and len(moved) > 100, len(moved)
+    assert "cls_0.weight" not in moved
+    out["lwf_mc"] = {"metrics": m, "moved_parameters": len(moved)}
+    log(f"[families] one LWF-MC step at full width (dense BCE, no fused "
+        f"kernel): loss {m['loss']:.5f}, l_icarl {m['l_icarl']:.5f}, "
+        f"{len(moved)} parameters moved, cls_0 frozen")
+    del model, model_old, state, old_vars
+    torch.cuda.empty_cache()
+    out["rw_small"] = phase_rw_small(dev)
+    return out
+
+
+def phase_rw_small(dev) -> dict:
+    """One f32 ResNet-50 RW step at 64x64, batch 2 (VOC 15-5s step 1, the
+    penalty on: a seeded previous-step export, the parameters moved off the
+    donor's by a seeded 1e-3 draw) on the card against the CPU, under
+    phase 3b's card-vs-CPU bounds: loss terms and `l_reg` within 1e-4
+    relative, the new classifier's gradient within 1e-3 of its largest
+    entry, and its RW fisher (alpha g^2 + (1 - alpha) F) within 2e-3 of
+    its largest entry (g^2 doubles the gradient's relative error)."""
+    kw = dict(TRAIN, method="RW", backbone="resnet50", batch_size=2,
+              crop_size=64, dtype="float32")
+    cfg = C.make_config(**kw)
+    step0 = calibrated_model("cpu", (16,), backbone="resnet50", size=64,
+                             batch=2, seed=6)
+    prev_sd = {k: v.clone() for k, v in step0.state_dict().items()}
+    g = torch.Generator().manual_seed(8)
+    saved = {name: {k: torch.rand(p.shape, generator=g) * 1e-2 for k, p in
+                    step0.named_parameters()} for name in ("score",
+                                                           "fisher")}
+    noise = {k: torch.randn(p.shape, generator=g) * 1e-3
+             for k, p in step0.named_parameters()}
+    batch = train_batches(1, 2, 64, cfg.tot_classes, seed=71)[0]
+    out = {}
+    for name, d in (("cpu", torch.device("cpu")), ("card", dev)):
+        model = make_model(cfg)
+        model_old = make_model(cfg, cfg.classes_per_step[:-1]).to(
+            device=d, memory_format=torch.channels_last)
+        state, old_vars = build_train_state(
+            cfg, model, torch.Generator().manual_seed(1), total_iters=100,
+            prev_model_state=prev_sd, prev_reg_saved=saved, device=d)
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                if k in noise:
+                    p.add_(noise[k].to(d))
+        before = kernel_counts()
+        _, metrics = make_train_step(cfg, model, model_old, total_iters=100,
+                                     device=d)(state, batch, old_vars)
+        used = _delta(kernel_counts(), before)
+        assert (used["fused_loss_fwd"], used["fused_loss_bwd"]) == (
+            (1, 1) if d.type == "cuda" else (0, 0)), (name, used)
+        out[name] = ({k: float(v) for k, v in metrics.items()},
+                     torch.cat([model.cls_1.weight.grad.detach().cpu()
+                                .flatten(),
+                                model.cls_1.bias.grad.detach().cpu()]),
+                     state.reg_state.fisher["cls_1.weight"].cpu().flatten())
+    (tc, gc, fc), (tg, gg, fg) = out["cpu"], out["card"]
+    assert tc["l_reg"] > 0, tc
+    for k in ("loss", "l_reg", "loss_tot"):
+        assert abs(tg[k] - tc[k]) <= 1e-4 * abs(tc[k]), (k, tg[k], tc[k])
+    rel = float((gg - gc).abs().max() / gc.abs().max())
+    rel_f = float((fg - fc).abs().max() / fc.abs().max())
+    log(f"[families] f32 ResNet-50 RW step at 64x64, card (kernels) vs CPU "
+        f"(plain): loss {tg['loss']:.6f} / {tc['loss']:.6f}, l_reg "
+        f"{tg['l_reg']:.6g} / {tc['l_reg']:.6g}, new-classifier gradient "
+        f"max rel err {rel:.3g} (bound 1e-3), its fisher {rel_f:.3g} "
+        f"(bound 2e-3)")
+    assert rel <= 1e-3, rel
+    assert rel_f <= 2e-3, rel_f
+    return {"grad_rel_err": rel, "fisher_rel_err": rel_f,
+            "l_reg": [tg["l_reg"], tc["l_reg"]]}
+
+
+# ---------------------------------------------------------------------------
 # phase 3c: the experiment around the step, through the port's CLI
 # ---------------------------------------------------------------------------
 
@@ -1790,6 +2258,108 @@ def time_training(dev, tr, where, profile_dir) -> dict:
     return r
 
 
+def busy_ms(fn, n) -> float:
+    """Device time a call of fn() from one torch.profiler window of n
+    calls: the sum of every kernel's, copy's and set's own device time
+    (one stream, so a sum and not a union)."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(evt.self_device_time_total for evt in prof.key_averages()
+             if evt.device_type == torch.autograd.DeviceType.CUDA)
+    return us / 1e3 / n
+
+
+def time_bundle(dev, tr, where) -> dict:
+    """The UCD step (phase 3b's model and state) eager and through
+    make_train_bundle at K = 1, 4 and 8 steps a call: img/s in windows of 8
+    steps ordered eager, K1, K4, K8, K8, K4, K1, eager, twice (each batch's
+    upload included: per step eagerly, per call stacked); capture seconds
+    and peak memory of each; the device's busy time a step (torch.profiler;
+    and a captured step's graph replayed back to back, CUDA events) and so
+    its idle share beside the windows' step time."""
+    cfg, model, model_old = tr["cfg"], tr["model"], tr["model_old"]
+    state, old_vars, batch = tr["state"], tr["old_vars"], tr["batch"]
+    step = make_train_step(cfg, model, model_old, total_iters=100)
+    ks = (1, 4, 8)
+    stacks = {k: stacked([batch] * k) for k in ks}
+    r = {"capture_s": {}, "peak_mem_gb": {}, "allocated_gb": {},
+         "peak_reserved_gb": {}, "reserved_gb": {}}
+    for _ in range(2):
+        step(state, batch, old_vars)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(state, batch, old_vars)
+    torch.cuda.synchronize()
+    r["peak_mem_gb"]["eager"] = torch.cuda.max_memory_allocated() / 1e9
+    r["allocated_gb"]["eager"] = torch.cuda.memory_allocated() / 1e9
+    r["peak_reserved_gb"]["eager"] = torch.cuda.max_memory_reserved() / 1e9
+    r["reserved_gb"]["eager"] = torch.cuda.memory_reserved() / 1e9
+    bundles = {}
+    for k in ks:
+        torch.cuda.reset_peak_memory_stats()
+        bundles[k] = make_train_bundle(cfg, model, model_old,
+                                       total_iters=100, k=k)
+        bundles[k](state, stacks[k], old_vars)  # slot 0 eager, capture
+        torch.cuda.synchronize()
+        r["capture_s"][k] = bundles[k].capture.capture_s
+        r["peak_mem_gb"][k] = torch.cuda.max_memory_allocated() / 1e9
+        r["allocated_gb"][k] = torch.cuda.memory_allocated() / 1e9
+        # the graph's private pool stays reserved, not allocated
+        r["peak_reserved_gb"][k] = torch.cuda.max_memory_reserved() / 1e9
+        r["reserved_gb"][k] = torch.cuda.memory_reserved() / 1e9
+
+    def window(mode, n=8):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if mode == "eager":
+            for _ in range(n):
+                step(state, batch, old_vars)
+        else:
+            for _ in range(n // mode):
+                bundles[mode](state, stacks[mode], old_vars)
+        torch.cuda.synchronize()
+        return n * BATCH / (time.perf_counter() - t0)
+
+    runs = {m: [] for m in ("eager",) + ks}
+    for mode in ("eager", 1, 4, 8, 8, 4, 1, "eager") * 2:
+        runs[mode].append(window(mode))
+    r["img_per_s_runs"] = {str(m): v for m, v in runs.items()}
+    r["img_per_s"] = {str(m): sum(v) / len(v) for m, v in runs.items()}
+    r["step_ms"] = {m: BATCH / v * 1e3 for m, v in r["img_per_s"].items()}
+    r["busy_ms"] = {
+        "eager": busy_ms(lambda: step(state, batch, old_vars), 5),
+        "4": busy_ms(lambda: bundles[4](state, stacks[4], old_vars), 2) / 4}
+    graph = bundles[1].capture.graph
+    r["graph_replay_ms"] = cuda_ms(graph.replay, iters=10, warmup=2)
+    r["idle_share"] = {m: 1.0 - r["busy_ms"][m] / r["step_ms"][m]
+                       for m in r["busy_ms"]}
+    r["idle_share"]["graph_replay_vs_8"] = \
+        1.0 - r["graph_replay_ms"] / r["step_ms"]["8"]
+    log(f"[time] UCD step eager vs captured (VOC 15-5s step 1, ResNet-101, "
+        f"batch {BATCH}, {SIZE}x{SIZE}, bf16) on {where}: img/s "
+        + ", ".join(f"{m} {v:.2f} ({', '.join(f'{x:.2f}' for x in runs[m if m == 'eager' else int(m)])})"
+                    for m, v in r["img_per_s"].items())
+        + "; device busy a step (profiler) eager "
+        f"{r['busy_ms']['eager']:.2f} ms, captured (K=4) "
+        f"{r['busy_ms']['4']:.2f} ms; a captured step's graph replayed back "
+        f"to back {r['graph_replay_ms']:.2f} ms; idle share eager "
+        f"{r['idle_share']['eager']:.3f}, K=4 {r['idle_share']['4']:.3f}; "
+        f"capture s {json.dumps(r['capture_s'])}; peak GB allocated "
+        f"{json.dumps(r['peak_mem_gb'])}, reserved "
+        f"{json.dumps(r['reserved_gb'])} (each K's graph keeps its pool)")
+    del bundles, graph
+    torch.cuda.empty_cache()
+    return r
+
+
 def time_experiment(dev, where) -> dict:
     """The experiment loop in steady state, beside phase 4's raw step: a
     step-1 UCD `Experiment` (VOC 15-5, ResNet-101, batch 8, 512x512, bf16)
@@ -1797,7 +2367,10 @@ def time_experiment(dev, where) -> dict:
     `train_epoch` (img/s, the host's wait for the loader), then one more
     pass over batches loaded beforehand (no loader threads); the train loader
     alone at 1, 4 and 8 worker threads; one checkpoint write, synchronous
-    and asynchronous (the time the loop is held)."""
+    and asynchronous (the time the loop is held). Beside it, the same
+    Experiment at steps_per_call 4 (two CUDA-graph calls of 4 steps an
+    epoch; its first epoch captures), epochs taken in turns with the
+    per-step loop's."""
     from ucd_torch.data import DataLoader, SyntheticSegmentation
     from ucd_torch.engine import checkpoint as CK
     from ucd_torch.engine.experiment import Experiment
@@ -1819,8 +2392,18 @@ def time_experiment(dev, where) -> dict:
                                       seed=2)
         exp = Experiment(C.make_config(step=1, method="UCD", **kw),
                          base_train=base1, base_val=base1, device=dev)
-        assert len(exp.train_loader) == 8
-        epochs = [exp.train_epoch(e) for e in range(3)]
+        exp4 = Experiment(C.make_config(step=1, method="UCD",
+                                        steps_per_call=4, **kw),
+                          base_train=base1, base_val=base1, device=dev)
+        assert len(exp.train_loader) == 8 and exp4.train_bundle is not None
+        epochs, epochs4 = [], []
+        for e in range(3):
+            epochs.append(exp.train_epoch(e))
+            epochs4.append(exp4.train_epoch(e))
+        capture4_s = exp4.train_bundle.capture.capture_s
+        exp4.close()
+        del exp4
+        torch.cuda.empty_cache()
         # the same steps over batches loaded beforehand: no loader threads
         # compete with the step's host work
         batches = list(exp.train_loader.epoch(3))
@@ -1848,6 +2431,11 @@ def time_experiment(dev, where) -> dict:
             CK.wait_pending()
         exp.close()
     r = {"epoch_img_per_s": [e["images_per_s"] for e in epochs],
+         "epoch_img_per_s_steps_per_call_4":
+             [e["images_per_s"] for e in epochs4],
+         "data_wait_s_steps_per_call_4": [e["data_wait_s"] for e in epochs4],
+         "loss_tot_steps_per_call_4": [e["loss_tot"] for e in epochs4],
+         "capture_s_steps_per_call_4": capture4_s,
          "epoch_time_s": [e["epoch_time_s"] for e in epochs],
          "data_wait_s": [e["data_wait_s"] for e in epochs],
          "loss_tot": [e["loss_tot"] for e in epochs],
@@ -1865,7 +2453,9 @@ def time_experiment(dev, where) -> dict:
         + ", ".join(f"{v:.1f} ms a batch at {w} threads"
                     for w, v in loader_ms.items())
         + f"; a checkpoint write holds the loop {save_s['sync']:.2f} s "
-        f"(sync) / {save_s['async']:.2f} s (async)")
+        f"(sync) / {save_s['async']:.2f} s (async); at steps_per_call 4 "
+        + ", ".join(f"{e['images_per_s']:.2f}" for e in epochs4)
+        + f" img/s (its first epoch captures, {capture4_s:.3f} s)")
     return r
 
 
@@ -1992,10 +2582,18 @@ def main(argv=None) -> int:
     assert min(counts.values()) > 0, counts
     lap("3b train path")
 
+    # phase 3d: the same step, K a call through a CUDA graph, bit for bit
+    bundled = phase_bundle(dev, trained)
+    lap("3d bundle (CUDA graph)")
+
     # phase 3c: the experiment around the step, through the CLI (it sets
     # the counts to 0 and reads them)
     experiment = phase_experiment(dev, where)
     lap("3c experiment")
+
+    # phase 3e: RW across two steps and its bundle, LWF-MC, RW card vs CPU
+    families = phase_families(dev)
+    lap("3e method families")
 
     # phase 4: timings
     timing = time_fused_argmax(dev, where)
@@ -2005,8 +2603,17 @@ def main(argv=None) -> int:
     log(json.dumps({"serving": {"card": where, **serving}}))
     training = time_training(dev, trained, where, args.profile)
     log(json.dumps({"training": {"card": where, **training}}))
+    captured = time_bundle(dev, trained, where)
     loop = time_experiment(dev, where)
+    failure = check_capture_failure()
     lap("4 timings")
+    log(json.dumps({"bundle": {
+        "card": where, "bits": bundled, "timing": captured,
+        "capture_failure": failure,
+        "experiment_img_per_s": {
+            "steps_per_call_1": loop["epoch_img_per_s"],
+            "steps_per_call_4": loop["epoch_img_per_s_steps_per_call_4"]}}}))
+    log(json.dumps({"families": {"card": where, **families}}))
     log(json.dumps({"experiment": {
         "card": where, **experiment,
         "raw_ucd_step_img_per_s": training["img_per_s"],
@@ -2040,6 +2647,7 @@ def main(argv=None) -> int:
             "launches_experiment": exp_counts[name],
             "launches_per_train_step":
                 trained["train_counts"][name] / trained["n_steps"],
+            "launches_bundle": bundled["launches_bundle"][name],
             "max_abs_err": loss_err[err_key],
             "max_rel_grad_err": loss_err["grad_rel_err"],
             **t})
@@ -2060,6 +2668,7 @@ def main(argv=None) -> int:
             "launches_experiment": exp_counts[name],
             "launches_per_train_step":
                 trained["train_counts"][name] / trained["n_steps"],
+            "launches_bundle": bundled["launches_bundle"][name],
             "max_abs_err": con_err[abs_key], "max_rel_err": con_err[rel_key],
             "mode": "bf16", **t["bf16"],
             **{f"{k}_f32": t["f32"][k] for k in (

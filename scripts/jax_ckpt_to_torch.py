@@ -39,7 +39,10 @@ def convert(ckpt_dir: str, out: str) -> dict:
         params=ck["model_state"]["params"],
         batch_stats=ck["model_state"]["batch_stats"],
         opt_state=ck["optimizer_state"], step=ck["step"])
-    port_ckpt.save_checkpoint(out, state, ck["epoch"], ck["best_score"])
+    ts = ck.get("trainer_state", {})
+    port_ckpt.save_checkpoint(out, state, ck["epoch"], ck["best_score"],
+                              reg_saved=ts.get("regularizer"),
+                              reg_full=ts.get("regularizer_full"))
     return ck
 
 

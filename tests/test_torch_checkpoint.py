@@ -208,7 +208,7 @@ def test_imported_jax_checkpoint_trains_on_as_jax_does(tmp_path, x64):
     model_t.load_state_dict(TK.state_dict_of(loaded["model_state"]))
     state_t.opt_state = TK.restore_like(state_t.opt_state,
                                         loaded["optimizer_state"])
-    state_t.step = loaded["step"]
+    state_t.step.fill_(loaded["step"])
 
     before = _flat_of(state_j.params, state_j.batch_stats)
     start_t = module_to_flax(model_t)

@@ -72,9 +72,16 @@ def test_config_from_args_matches_jax(argv):
     (["--steps_per_call", "2"], "--steps_per_call"),
 ])
 def test_unported_flags_are_refused_by_name(tmp_path, extra, name):
+    """Each flag of a feature the port lacks is refused by name;
+    `--steps_per_call`, ported with the CUDA-graph bundle, is taken."""
     argv = ["train", "--synthetic", "4", "--device", "cpu",
             "--ckpt_dir", str(tmp_path / "ck"), "--logdir",
             str(tmp_path / "logs")] + extra
+    if name == "--steps_per_call":
+        args = TCLI.build_parser().parse_args(argv)
+        TCLI.refuse_unported(args)
+        assert TCLI.config_from_args(args).steps_per_call == 2
+        return
     with pytest.raises(SystemExit, match=name):
         TCLI.main(argv)
     assert not os.path.exists(tmp_path / "ck")

@@ -94,8 +94,9 @@ def test_task_registry_matches_everywhere():
 
 def test_tpu_only_fields_are_reported():
     """Fields that only steer the TPU execution stay in the Config; a
-    non-default value is reported (the train step raises on it)."""
+    non-default value is reported (the train step raises on it).
+    `steps_per_call` is the port's own (K steps a CUDA-graph call)."""
     assert TC.unsupported_fields(TC.Config()) == []
     cfg = TC.Config(remat=True, steps_per_call=4, xla_options="a=b")
-    assert sorted(TC.unsupported_fields(cfg)) == ["remat", "steps_per_call",
-                                                  "xla_options"]
+    assert sorted(TC.unsupported_fields(cfg)) == ["remat", "xla_options"]
+    assert TC.unsupported_fields(TC.Config(steps_per_call=4)) == []

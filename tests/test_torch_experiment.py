@@ -108,13 +108,20 @@ def test_missing_donor_raises(tmp_path, bases):
 
 
 def test_refusals_and_missing_pretrained(tmp_path, bases):
+    """K steps a call and the regularizers are taken (ported with the
+    CUDA-graph bundle and ops/regularizers.py); a missing pretrained body
+    and a missing card are refused."""
     base_train, base_val = bases
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        Experiment(make_cfg(tmp_path, steps_per_call=2),
-                   base_train=base_train, base_val=base_val, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        Experiment(make_cfg(tmp_path, method="EWC"), base_train=base_train,
-                   base_val=base_val, device="cpu")
+    exp = Experiment(make_cfg(tmp_path, steps_per_call=2),
+                     base_train=base_train, base_val=base_val, device="cpu")
+    assert exp.train_bundle is not None and exp.state.reg_state is None
+    exp.close()
+    exp = Experiment(make_cfg(tmp_path, method="EWC"),
+                     base_train=base_train, base_val=base_val, device="cpu")
+    assert exp.train_bundle is None
+    assert exp.state.reg_state.kind == "ewc"
+    assert not exp.state.reg_state.penalize  # step 0: nothing saved yet
+    exp.close()
     # the JAX package's text for a missing pretrained body
     cfg = make_cfg(tmp_path, pretrained=True,
                    pretrained_path=str(tmp_path / "none.pth.tar"))

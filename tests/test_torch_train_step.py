@@ -478,8 +478,10 @@ def test_ucd_step_feeds_attended_pre_logits():
 
 
 def test_unported_branches_raise_by_name():
-    """No branch is dropped silently: what is not ported raises and names
-    its ROADMAP item; TPU-only fields raise on a non-default value."""
+    """No branch is dropped silently. The iCaRL criteria and the
+    regularizers are ported: LWF-MC trains (its dense BCE criterion and
+    iCaRL term, no fused kernel) and EWC builds its state; the TPU-only
+    fields still raise on a non-default value, naming the field."""
     def step_for(**kw):
         cfg, _ = _cfgs(1, kw.pop("method", "MiB"), "float32", **kw)
         m = make_model(cfg)
@@ -492,14 +494,17 @@ def test_unported_branches_raise_by_name():
                                    prev_model_state=mo.state_dict(),
                                    device="cpu")
     batch = _batches(1, cfg.tot_classes, seed=1)[0]
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        make_train_step(cfg, m, mo, TOTAL_ITERS, device="cpu")(state, batch, old)
+    before = m.cls_1.weight.detach().clone()
+    _, metrics = make_train_step(cfg, m, mo, TOTAL_ITERS,
+                                 device="cpu")(state, batch, old)
+    assert float(metrics["l_icarl"]) > 0 and float(metrics["loss"]) > 0
+    assert np.isfinite(float(metrics["loss_tot"]))
+    assert not torch.equal(before, m.cls_1.weight)
     cfg, m, mo = step_for(method="EWC")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        make_train_step(cfg, m, mo, TOTAL_ITERS, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        build_train_state(cfg, m, torch.Generator().manual_seed(0),
-                          TOTAL_ITERS, device="cpu")
+    make_train_step(cfg, m, mo, TOTAL_ITERS, device="cpu")
+    state, _ = build_train_state(cfg, m, torch.Generator().manual_seed(0),
+                                 TOTAL_ITERS, device="cpu")
+    assert state.reg_state.kind == "ewc" and not state.reg_state.penalize
     cfg, m, mo = step_for(remat=True)
     with pytest.raises(NotImplementedError, match="remat"):
         make_train_step(cfg, m, mo, TOTAL_ITERS, device="cpu")

@@ -4,6 +4,7 @@ conversion, the argmax near-tie rule and the contrastive term's seeded
 inputs."""
 
 import numpy as np
+import pytest
 
 
 def random_flat_variables(jax_model, input_hw, seed=0):
@@ -100,3 +101,28 @@ def both_batches(inputs, max_label):
         torch.from_numpy(f_n), torch.from_numpy(labels),
         torch.from_numpy(l_po), torch.from_numpy(f_o), max_label)
     return bt, bj
+
+
+@pytest.fixture
+def one_torch_thread():
+    """Run the test's torch work on one thread, restored afterwards. The
+    suite runs in several worker processes at once, and torch's default of
+    one thread per core then oversubscribes the host many times over
+    (train-loop tests ran 20-40x slower in parallel than alone with it)."""
+    import torch
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture
+def free_tmp_path(tmp_path):
+    """Empty the test's tmp_path after it ran: pytest keeps every test's
+    directory until the session ends, and a regularized step's checkpoint
+    holds eight parameter-sized trees (about 0.75 GB at ResNet-50)."""
+    import shutil
+
+    yield tmp_path
+    shutil.rmtree(tmp_path, ignore_errors=True)

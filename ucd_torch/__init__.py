@@ -15,11 +15,14 @@ What it implements:
     -> `engine.server`, with the fused upsample+argmax kernel
     (`ops/csrc/fused_argmax.cu`);
   * the train and validate steps (`engine.state.build_train_state` ->
-    `engine.train.make_train_step` / `make_eval_step`) for the FT / LWF /
-    ILT / MiB / UCD methods, with the fused upsample+CE/KD forward and
-    backward kernels (`ops/csrc/fused_loss.cu`) and, under UCD, the tiled
+    `engine.train.make_train_step` / `make_eval_step`) for every method
+    family of the JAX package (FT / LWF / LWF-MC / ILT / EWC / PI / RW /
+    MiB / UCD, `--bce`), with the fused upsample+CE/KD forward and backward
+    kernels (`ops/csrc/fused_loss.cu`), under UCD the tiled
     pixel-contrastive kernels (`ops/csrc/tiled_contrastive.cu` and its
-    tensor-core header);
+    tensor-core header), and the EWC / PI / RW regularizers
+    (`ops.regularizers`); `engine.train.make_train_bundle` trains K steps
+    a call through one CUDA graph;
   * the experiment around the step: the data pipeline (`data`), step
     checkpoints with the JAX package's schema and an importer for JAX step
     checkpoints (`engine.checkpoint`), the `engine.experiment.Experiment`

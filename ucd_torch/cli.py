@@ -18,11 +18,12 @@ same flags, plus `--device` on each:
     python -m ucd_torch.cli predict --model m.npz --images photos/ --out preds/
     python -m ucd_torch.cli serve --model m.npz --port 8433 --warmup_size 512
 
-Everything runs on CUDA unless `--device cpu` is given. Flags of features
-that are not ported yet are parsed and refused by name when set: the
-multi-process launch (--coordinator, --num_processes, --process_id,
---distributed; ROADMAP A6) and the JAX package's TPU execution options
-(--remat, --xla_options, --steps_per_call > 1).
+Everything runs on CUDA unless `--device cpu` is given. `--steps_per_call
+K` trains K steps a call through a CUDA graph. Flags of features that are
+not ported yet are parsed and refused by name when set: the multi-process
+launch (--coordinator, --num_processes, --process_id, --distributed;
+ROADMAP A6) and the JAX package's TPU execution options (--remat,
+--xla_options).
 """
 
 from __future__ import annotations
@@ -168,8 +169,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="JAX package only: refused")
     p.add_argument("--nan_guard", action="store_true", default=False)
     p.add_argument("--steps_per_call", type=int, default=1,
-                   help="train steps per device call; values > 1 are "
-                        "refused until CUDA-graph capture (ROADMAP A8)")
+                   help="train steps per call: K > 1 captures the step "
+                        "in a CUDA graph and replays it K times a call")
     p.add_argument("--xla_options", type=str, default="",
                    help="JAX package only (compiler options of its "
                         "train/eval steps): refused")
@@ -381,11 +382,9 @@ _REFUSED = (("--coordinator", "coordinator", "A6"),
             ("--process_id", "process_id", "A6"),
             ("--distributed", "distributed", "A6"),
             ("--remat", "remat", "the JAX package only"),
-            ("--xla_options", "xla_options", "the JAX package only"),
-            ("--steps_per_call", "steps_per_call", "A8"))
+            ("--xla_options", "xla_options", "the JAX package only"))
 _UNSET = {"coordinator": None, "num_processes": None, "process_id": None,
-          "distributed": False, "remat": False, "xla_options": "",
-          "steps_per_call": 1}
+          "distributed": False, "remat": False, "xla_options": ""}
 
 
 def refuse_unported(args: argparse.Namespace) -> None:

@@ -6,9 +6,10 @@ the `--method` preset expander `apply_method`, the bug-compatible preset and
 `make_config`. Every field is kept so that presets and CLI flags mean the
 same in both packages. Fields that only steer the TPU execution
 (`xla_options`, `stem_s2d`, `remat`, `remat_early`, `bf16_norm`,
-`bf16_norm_early`, `steps_per_call`, `data_axis`) stay as fields; the port's
-train step raises on a non-default value of one it does not implement
-(`unsupported_fields`) instead of ignoring it.
+`bf16_norm_early`, `data_axis`) stay as fields; the port's train step
+raises on a non-default value of one (`unsupported_fields`) instead of
+ignoring it. `steps_per_call` is the port's too: K train steps a call
+through a CUDA graph (engine/train.py `make_train_bundle`).
 """
 
 from __future__ import annotations
@@ -30,8 +31,7 @@ NUM_CLASSES = {"voc": 21, "ade": 151, "city": 20, "city_domain": 19}
 # TPU-execution fields and the only value of each that the port implements
 TPU_ONLY_DEFAULTS = {"xla_options": "", "stem_s2d": False, "remat": False,
                      "remat_early": False, "bf16_norm": False,
-                     "bf16_norm_early": False, "steps_per_call": 1,
-                     "data_axis": 0}
+                     "bf16_norm_early": False, "data_axis": 0}
 
 
 @dataclass
@@ -111,7 +111,7 @@ class Config:
     stable_norm: bool = False      # the port always computes the
                                    # cancellation-free BatchNorm variance
     remat_early: bool = False      # JAX package only
-    steps_per_call: int = 1        # JAX package only (scan bundling)
+    steps_per_call: int = 1        # train steps a call (CUDA graph)
     data_axis: int = 0             # JAX package only (mesh axis size)
     remat: bool = False            # JAX package only
     stem_s2d: bool = False         # JAX package only (stem layout)

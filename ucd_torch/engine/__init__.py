@@ -9,6 +9,7 @@ from .train import (
     make_eval_step,
     make_lr_schedule,
     make_optimizer,
+    make_train_bundle,
     make_train_step,
 )
 from .state import build_train_state
@@ -27,6 +28,7 @@ from .checkpoint import (
     load_model_state,
     load_reg_full,
     load_reg_saved,
+    restore_into,
     restore_like,
     save_checkpoint,
 )
@@ -34,9 +36,10 @@ from .checkpoint import (
 __all__ = [
     "TrainState", "compute_train_losses", "make_eval_step",
     "make_lr_schedule", "make_optimizer", "make_train_step",
+    "make_train_bundle",
     "build_train_state", "AverageMeter", "confusion_matrix_update",
     "empty_confusion", "results_from_confusion", "results_to_str",
     "confusion_matrix_figure", "load_checkpoint", "load_model_state",
     "load_reg_saved", "load_reg_full", "save_checkpoint", "check_schema",
-    "restore_like", "import_jax_checkpoint",
+    "restore_like", "restore_into", "import_jax_checkpoint",
 ]

@@ -7,10 +7,16 @@ Counterpart of ucd_tpu/engine/checkpoint.py. A checkpoint is one
      step, trainer_state?}
 
 where `model_state.params` / `.batch_stats` are the model's parameters and
-buffers by `state_dict` name, and `optimizer_state` is the train step's
-`opt_state` ({"trace": name -> momentum buffer, "count", "nonfinite"}). It is
-read back with `torch.load(..., weights_only=True)`: tensors, numbers and
-dicts only. Cross-step restore is a `state_dict` merge (engine/state.py).
+buffers by `state_dict` name, `optimizer_state` is the train step's
+`opt_state` ({"trace": name -> momentum buffer, "count", "nonfinite"}), and
+`trainer_state` holds a regularizer's `export_state` ("regularizer", the
+next step's importance) and `export_full` ("regularizer_full", the
+in-flight accumulators of a same-step resume), dicts by parameter name
+(ops/regularizers.py). It is read back with `torch.load(...,
+weights_only=True)`: tensors, numbers and dicts only. Cross-step restore is
+a `state_dict` merge (engine/state.py); a same-step resume copies into the
+live state's tensors (`restore_into`), which a captured step keeps
+reading.
 
 `import_jax_checkpoint` turns the numpy tree of a JAX step checkpoint (an
 orbax directory, read by `ucd_tpu.engine.checkpoint.load_checkpoint`) into
@@ -82,7 +88,8 @@ def save_checkpoint(path: str, state, epoch: int, best_score: float,
                     async_write: bool = False) -> None:
     """Write the step checkpoint of `state` (an engine.train.TrainState).
     `reg_saved` / `reg_full` are the regularizer's cross-step export and
-    mid-step snapshot (the regularizers come with ROADMAP A7).
+    mid-step snapshot (`export_state` / `export_full` of
+    ops/regularizers.py), or None without a regularizer.
 
     With `async_write` the device->host copy happens now, and torch.save
     plus the disk write run on a background non-daemon thread: training
@@ -167,6 +174,19 @@ def restore_like(template, raw):
     return type(template)(raw)
 
 
+@torch.no_grad()
+def restore_into(template, raw) -> None:
+    """Copy `raw` into the tensors of `template` in place (a captured step
+    keeps reading them), after `restore_like`'s checks."""
+    def copy(dst, src):
+        if isinstance(dst, Mapping):
+            for k in dst:
+                copy(dst[k], src[k])
+        else:
+            dst.copy_(src)
+    copy(template, restore_like(template, raw))
+
+
 def load_checkpoint(path: str) -> Optional[dict]:
     """The checkpoint at `path`, or None if there is none. A directory is
     an orbax checkpoint of the JAX package: it raises, naming the bridge
@@ -237,12 +257,11 @@ def import_jax_checkpoint(raw: Mapping[str, Any]) -> dict:
     `num_batches_tracked` per BatchNorm); optax's masked-nesterov trace
     becomes `optimizer_state["trace"]` under the same names, its schedule
     count `count`, and `apply_if_finite`'s consecutive-skip count (under
-    --nan_guard) `nonfinite`; `step`, `epoch` and `best_score` carry over."""
+    --nan_guard) `nonfinite`; `step`, `epoch` and `best_score` carry over.
+    A regularizer's `trainer_state` (its export and mid-step snapshot,
+    trees shaped like the parameters) goes over by parameter name, conv
+    kernels transposed like the weights, the snapshot's `count` an int."""
     check_schema(raw, "<jax checkpoint>")
-    if raw.get("trainer_state"):
-        raise NotImplementedError(
-            "the checkpoint holds regularizer state: the EWC/PI/RW "
-            "regularizers are not ported yet (ROADMAP A7)")
     ms = raw["model_state"]
     sd = flax_to_state_dict({**_flatten(ms["params"], "params"),
                              **_flatten(ms["batch_stats"], "batch_stats")})
@@ -254,8 +273,8 @@ def import_jax_checkpoint(raw: Mapping[str, Any]) -> dict:
     # chain(add_decayed_weights -> EmptyState, sgd -> (TraceState,
     # ScaleByScheduleState)); orbax restores tuples as lists
     _, (trace_state, sched_state) = opt
-    trace = flax_to_state_dict(_flatten(trace_state["trace"], "params"))
-    return {
+    trace = _param_tree(trace_state["trace"])
+    out = {
         "epoch": int(np.asarray(raw["epoch"])),
         "best_score": float(np.asarray(raw["best_score"])),
         "model_state": {
@@ -269,3 +288,18 @@ def import_jax_checkpoint(raw: Mapping[str, Any]) -> dict:
                             "nonfinite": nonfinite},
         "step": int(np.asarray(raw["step"])),
     }
+    ts = raw.get("trainer_state")
+    if ts:
+        out["trainer_state"] = {
+            slot: {k: (int(np.asarray(v)) if k == "count"
+                       else _param_tree(v))
+                   for k, v in ts[slot].items() if v is not None}
+            for slot in ("regularizer", "regularizer_full")
+            if ts.get(slot) is not None}
+    return out
+
+
+def _param_tree(tree: Mapping) -> dict:
+    """A JAX tree shaped like the parameters -> tensors by parameter
+    name."""
+    return flax_to_state_dict(_flatten(tree, "params"))

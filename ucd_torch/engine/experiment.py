@@ -9,8 +9,11 @@ save) -> final test on every class seen so far.
 The port runs one process on one device (CUDA unless the caller passes
 `device="cpu"`; it never moves to the CPU on its own). What the JAX class
 does for a mesh (sharding, per-host batch assembly) and for XLA (the
-compile cache, K-step bundles) has no counterpart here: `steps_per_call >
-1` raises, naming ROADMAP A8, and multi-process runs wait for A6.
+compile cache) has no counterpart here; multi-process runs wait for
+ROADMAP A6. `steps_per_call > 1` trains K full batches a call through
+`make_train_bundle` (a CUDA graph on the card), as the JAX class scans
+them. The regularizer's state (EWC / PI / RW) crosses incremental steps
+through the checkpoint and a same-step resume restores it bit for bit.
 `profile_dir` traces the first epoch with torch.profiler.
 
 The train loop keeps the step's metrics on the device and fetches them
@@ -34,12 +37,13 @@ from ..data import DataLoader, make_incremental_dataset, split_train_val
 from ..data.transforms import train_transform, val_transform
 from ..device import resolve_device
 from ..models import make_model
+from ..ops import regularizers as R
 from ..utils.viz import compose_sample_png
 from . import checkpoint as ckpt_lib
 from .logger import Logger
 from .metrics import empty_confusion, results_from_confusion, results_to_str
 from .state import build_train_state
-from .train import make_eval_step, make_train_step
+from .train import make_eval_step, make_train_bundle, make_train_step
 
 
 def get_datasets(cfg: Config, base_train=None, base_val=None):
@@ -146,10 +150,6 @@ class Experiment:
     def __init__(self, cfg: Config, base_train=None, base_val=None,
                  logger: Optional[Logger] = None, device=None):
         cfg.validate()
-        if cfg.steps_per_call > 1:
-            raise NotImplementedError(
-                "steps_per_call > 1 (K train steps per device call) is not "
-                "ported yet: it comes with CUDA-graph capture (ROADMAP A8)")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.local_batch = cfg.batch_size
@@ -178,12 +178,12 @@ class Experiment:
 
         self.model = make_model(cfg)
         self.model_old = None
-        prev_model_state = None
+        prev_model_state = prev_reg = None
         if cfg.step > 0:
             self.model_old = make_model(cfg, classes=cfg.classes_per_step[:-1])
             path = cfg.step_ckpt or cfg.ckpt_path(cfg.step - 1)
-            prev = ckpt_lib.load_model_state(path)
-            if prev is None:
+            prev_ck = ckpt_lib.load_checkpoint(path)
+            if prev_ck is None:
                 if cfg.debug or cfg.test_only:
                     # eval-only runs need no donor; debug mode allows
                     # training from scratch
@@ -194,7 +194,11 @@ class Experiment:
                 else:
                     raise FileNotFoundError(path)
             else:
-                prev_model_state = ckpt_lib.state_dict_of(prev)
+                prev_model_state = ckpt_lib.state_dict_of(
+                    prev_ck["model_state"])
+                # the previous step's regularizer export: the importance
+                prev_reg = (prev_ck.get("trainer_state")
+                            or {}).get("regularizer")
 
         # the same-step resume path is resolved BEFORE the pretrained load:
         # a restart after preemption must not fail on a host without
@@ -229,10 +233,18 @@ class Experiment:
         self.state, self.old_vars = build_train_state(
             cfg, self.model, torch.Generator().manual_seed(cfg.random_seed),
             self.total_iters, prev_model_state=prev_model_state,
-            pretrained_body=pretrained_body, device=self.device)
+            prev_reg_saved=prev_reg, pretrained_body=pretrained_body,
+            device=self.device)
         self.train_step = make_train_step(cfg, self.model, self.model_old,
                                           self.total_iters,
                                           device=self.device)
+        # K full batches a call (cfg.steps_per_call > 1); odd-shaped
+        # batches and the epoch's tail take the per-step path
+        self.train_bundle = None
+        if cfg.steps_per_call > 1:
+            self.train_bundle = make_train_bundle(
+                cfg, self.model, self.model_old, self.total_iters,
+                k=cfg.steps_per_call, device=self.device)
         self.eval_step = make_eval_step(cfg, self.model, self.model_old,
                                         device=self.device)
 
@@ -240,8 +252,9 @@ class Experiment:
         self.best_score = 0.0
         self.last_val_samples: list = []
         # same-step resume: model, optimizer (momentum + schedule position),
-        # epoch and best score; a resumed run is bit-identical to an
-        # uninterrupted one
+        # the regularizer's in-flight accumulators, epoch and best score,
+        # each copied into the state's own tensors; a resumed run is
+        # bit-identical to an uninterrupted one
         if resume_path is not None:
             ck = ckpt_lib.load_checkpoint(resume_path)
             if ck is not None:
@@ -251,9 +264,11 @@ class Experiment:
                 if not cfg.test_only:
                     # eval-only runs need the variables only: the
                     # optimizer state may have another structure
-                    self.state.opt_state = ckpt_lib.restore_like(
-                        self.state.opt_state, ck["optimizer_state"])
-                self.state.step = int(ck["step"])
+                    ckpt_lib.restore_into(self.state.opt_state,
+                                          ck["optimizer_state"])
+                    R.restore_full(self.state.reg_state,
+                                   ckpt_lib.load_reg_full(ck))
+                self.state.step.fill_(int(ck["step"]))
                 self.cur_epoch = int(ck["epoch"]) + 1
                 self.best_score = float(ck["best_score"])
                 self.logger.info(f"[!] Model restored from {resume_path}")
@@ -276,17 +291,11 @@ class Experiment:
                     sums[k] = sums.get(k, 0.0) + v
             return fetched
 
-        batches = iter(self.train_loader.epoch(epoch))
-        while True:
-            tw = time.perf_counter()
-            batch = next(batches, None)
-            wait += time.perf_counter() - tw
-            if batch is None:
-                break
-            self.state, m = self.train_step(self.state, batch, self.old_vars)
-            n += 1
-            since_print += 1
-            pending.append(m)
+        def record(ms):
+            nonlocal n, since_print
+            pending.extend(ms)
+            n += len(ms)
+            since_print += len(ms)
             if since_print >= cfg.print_interval:
                 since_print = 0
                 fetched = fetch_pending()
@@ -296,6 +305,41 @@ class Experiment:
                     f"Loss={avg:.4f}")
                 self.logger.add_scalar(
                     "Loss", avg, epoch * len(self.train_loader) + n)
+
+        def step(batch):
+            self.state, m = self.train_step(self.state, batch, self.old_vars)
+            record([m])
+
+        k = cfg.steps_per_call if self.train_bundle is not None else 1
+        buf: list = []  # full batches waiting for a K-step call
+        batches = iter(self.train_loader.epoch(epoch))
+        while True:
+            tw = time.perf_counter()
+            batch = next(batches, None)
+            wait += time.perf_counter() - tw
+            if batch is None:
+                break
+            if k > 1 and batch["label"].shape[0] == \
+                    self.train_loader.batch_size:
+                buf.append(batch)
+                if len(buf) == k:
+                    stacked = {key: torch.stack([torch.as_tensor(b[key])
+                                                 for b in buf])
+                               for key in buf[0]}
+                    buf.clear()
+                    self.state, m = self.train_bundle(self.state, stacked,
+                                                      self.old_vars)
+                    record([{key: v[i] for key, v in m.items()}
+                            for i in range(k)])
+            else:
+                # an odd-shaped batch: the buffered full batches go first,
+                # so the trajectory keeps the loader's order
+                for b in buf:
+                    step(b)
+                buf.clear()
+                step(batch)
+        for b in buf:  # the epoch's tail, shorter than K
+            step(b)
         fetch_pending()
         dt = time.perf_counter() - t0
         out = {k: v / max(n, 1) for k, v in sums.items()}
@@ -348,8 +392,11 @@ class Experiment:
 
     def save(self, epoch: int, score: float):
         cfg = self.cfg
-        ckpt_lib.save_checkpoint(cfg.ckpt_path(), self.state, epoch, score,
-                                 async_write=cfg.async_ckpt)
+        reg = self.state.reg_state
+        ckpt_lib.save_checkpoint(
+            cfg.ckpt_path(), self.state, epoch, score,
+            reg_saved=R.export_state(reg, self.state.params),
+            reg_full=R.export_full(reg), async_write=cfg.async_ckpt)
         self.logger.info("[!] Checkpoint saved.")
 
     def run(self, profile_dir: Optional[str] = None) -> dict:

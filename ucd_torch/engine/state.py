@@ -6,7 +6,9 @@ Counterpart of ucd_tpu/engine/state.py:
   * cross-step restore of the previous step's variables into the new model
     (the extra classifier keeps its init, optionally MiB-imprinted) and as
     the frozen donor's variables;
-  * fresh optimizer state, step 0.
+  * fresh optimizer state and, under a regularizer, its state from the
+    previous step's export; step 0. Every counter is a tensor on the
+    device (engine/train.py).
 """
 
 from __future__ import annotations
@@ -18,6 +20,7 @@ import torch
 from ..config import Config
 from ..device import resolve_device
 from ..models.segmentation import init_new_classifier, merge_old_params
+from ..ops import regularizers as R
 from .train import TrainState, make_optimizer
 
 
@@ -51,11 +54,11 @@ def build_train_state(cfg: Config, model, generator: torch.Generator,
       body, a state_dict of `model.body`), no donor;
     * step > 0: the previous step's state_dict merged into the fresh one
       (new classifier entries keep their init), optional MiB imprinting,
-      donor = the previous step's variables verbatim (copied to `device`).
+      donor = the previous step's variables verbatim (copied to `device`);
+    * under `cfg.regularizer`, its state (ops/regularizers.py) from
+      `prev_reg_saved`, the previous step's `export_state` (None: no
+      penalty), anchored at the donor's parameters.
     """
-    if cfg.regularizer is not None:
-        raise NotImplementedError(
-            "the EWC/PI/RW regularizers are not ported yet (ROADMAP A7)")
     dev = resolve_device(device)
     model.init_weights(generator)
     sd = dict(model.state_dict())
@@ -74,8 +77,17 @@ def build_train_state(cfg: Config, model, generator: torch.Generator,
     model.load_state_dict(sd, strict=True)
     model.to(device=dev, memory_format=torch.channels_last)
 
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    reg_state = None
+    if cfg.regularizer is not None:
+        reg_state = R.init_reg_state(
+            cfg.regularizer, params,
+            old_params=(None if old_vars is None else
+                        {k: v for k, v in old_vars.items() if k in params}),
+            saved=prev_reg_saved, alpha=cfg.reg_alpha,
+            iterations=cfg.reg_iterations, normalize=cfg.reg_normalize)
     tx = make_optimizer(cfg, total_iters)
-    state = TrainState(model=model,
-                       opt_state=tx.init(dict(model.named_parameters())),
-                       reg_state=None, step=0)
+    state = TrainState(model=model, opt_state=tx.init(params),
+                       reg_state=reg_state,
+                       step=torch.zeros((), dtype=torch.int64, device=dev))
     return state, old_vars

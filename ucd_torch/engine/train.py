@@ -1,35 +1,43 @@
 """The training engine: the train step (donor forward, train-mode forward,
-loss terms, backward, masked nesterov SGD) and the validate step.
+loss terms, backward, regularizer, masked nesterov SGD), K steps per call
+(`make_train_bundle`, a CUDA graph on the card) and the validate step.
 
 Counterpart of ucd_tpu/engine/train.py. Differences by design:
 
   * PyTorch runs eagerly and updates in place: `TrainState` refers to the
     model that owns the parameters and the BatchNorm statistics, the step
-    mutates them and returns the same state object;
+    mutates them and returns the same state object. Every other piece of
+    state is a tensor on the device updated in place too (the momentum
+    buffers, the schedule's count, `nan_guard`'s skip count, the call
+    count `step`, the regularizer's accumulators), so one code path serves
+    the eager step and the captured one;
   * the frozen donor is `model_old` evaluated on `old_vars` (a state_dict)
     through `torch.func.functional_call`, in eval mode under
     `torch.no_grad()`;
   * frozen parameters have `requires_grad=False`, so autograd computes no
     gradient for them and the optimizer never sees them: they receive no
-    update and no weight decay (the JAX step masks gradients and updates);
+    update and no weight decay (the JAX step masks gradients and updates).
+    Under a regularizer every parameter takes a gradient, since its
+    accumulators read the unmasked gradients as on the JAX side;
   * neither step computes the full-res upsample unless the dense path
     needs it (`model.forward_feats`); the fused path reads the low-res
-    logits only.
+    logits only;
+  * `make_train_bundle` captures one step in a CUDA graph and replays it
+    once per batch (the JAX package scans the step under `jit`).
 
-Ported branches: fused CE/KD, dense CE/unCE, dense KD/unKD, `lde` and the
-UCD pixel-contrastive term (`cfg.contrastive`, what `--method UCD` adds to
-the MiB preset): built from the attended `pre_logits` of both models and
-the donor's logits, through the streaming kernels of
-ops/tiled_contrastive.py under `cfg.use_pallas_contrastive` (in bf16 mode
-under the bf16 policy) or the dense loss of ops/contrastive.py without it.
-The validate step computes no contrastive term, as on the JAX side. The
-`icarl`, `bce` and regularizer branches raise NotImplementedError naming
-their ROADMAP item.
+Every branch of the JAX step is ported: fused CE/KD, dense CE/unCE, BCE,
+the iCaRL criteria and term, dense KD/unKD, `lde`, the UCD
+pixel-contrastive term (`cfg.contrastive`, what `--method UCD` adds to the
+MiB preset) through the streaming kernels of ops/tiled_contrastive.py
+under `cfg.use_pallas_contrastive` or the dense loss of ops/contrastive.py
+without it, and the EWC/PI/RW regularizers of ops/regularizers.py. The
+validate step computes no contrastive term, as on the JAX side.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Callable, Dict, Mapping, Optional
 
 import torch
@@ -42,6 +50,8 @@ from ..models.segmentation import resize_bilinear, trainable_mask
 from ..ops import fused_eval as FE
 from ..ops import fused_loss as FL
 from ..ops import losses as L
+from ..ops import regularizers as R
+from ..ops import tiled_contrastive as TT
 from ..ops.contrastive import ucd_contrastive_loss
 from .metrics import confusion_matrix_update
 
@@ -52,12 +62,14 @@ MAX_CONSECUTIVE_NONFINITE = 100
 class TrainState:
     """`model` owns the parameters and the BatchNorm statistics;
     `opt_state` is {"trace": name -> momentum buffer, "count": applied
-    updates, "nonfinite": consecutive skipped updates}; `step` counts calls
-    of the train step."""
+    updates, "nonfinite": consecutive skipped updates}, the counts 0-d
+    int64 tensors on the device; `reg_state` the regularizer's
+    (ops/regularizers.py) or None; `step` a 0-d int64 device tensor that
+    counts calls of the train step."""
     model: torch.nn.Module
     opt_state: Dict[str, Any]
-    reg_state: Optional[Any] = None
-    step: int = 0
+    reg_state: Optional[R.RegState] = None
+    step: Any = 0
 
     @property
     def params(self) -> Dict[str, torch.Tensor]:
@@ -69,25 +81,38 @@ class TrainState:
 
 
 def make_lr_schedule(cfg: Config, total_iters: int):
-    """PolyLR stepped per iteration, or StepLR: `lr(count)`, count from 0."""
+    """PolyLR stepped per iteration, or StepLR: `lr(count, dtype)`, count
+    from 0 (a tensor, on the device for the train step, or a number). The
+    result is a 0-d tensor of `dtype` (f32 unless given) beside `count`,
+    computed in that dtype as the JAX schedule computes in f32 (its `pow`
+    may round 1 ulp apart)."""
+    def as_tensor(count):
+        return count if isinstance(count, torch.Tensor) \
+            else torch.as_tensor(count)
+
     if cfg.lr_policy == "poly":
-        def sched(count):
-            frac = 1.0 - count / max(total_iters, 1)
-            return cfg.lr * max(frac, 0.0) ** cfg.lr_power
+        def sched(count, dtype=torch.float32):
+            frac = 1.0 - as_tensor(count).to(dtype) / max(total_iters, 1)
+            return torch.clamp_min(frac, 0.0) ** cfg.lr_power * cfg.lr
         return sched
 
-    def sched(count):
-        return cfg.lr * cfg.lr_decay_factor ** (count // cfg.lr_decay_step)
+    def sched(count, dtype=torch.float32):
+        k = torch.div(as_tensor(count), cfg.lr_decay_step,
+                      rounding_mode="floor").to(dtype)
+        return torch.pow(cfg.lr_decay_factor, k) * cfg.lr
     return sched
 
 
 class Optimizer:
     """SGD(momentum, nesterov) with coupled weight decay: the decay is
     added to the gradient of every parameter it is given (BN and biases
-    included) before the momentum. With `cfg.nan_guard` an update whose
-    gradients are not all finite is skipped whole (after
-    MAX_CONSECUTIVE_NONFINITE skips in a row it is applied anyway), and
-    the schedule does not advance."""
+    included) before the momentum; the update is then p - lr * u, optax's
+    `p + (-lr * u)`. The schedule reads the count on the device. With
+    `cfg.nan_guard` an update whose gradients are not all finite is skipped
+    whole by a select on the device (params, momentum and count unchanged,
+    `nonfinite` incremented; the update after MAX_CONSECUTIVE_NONFINITE
+    skips in a row is applied anyway; a finite one resets `nonfinite`):
+    optax.apply_if_finite(max_consecutive_errors=100)."""
 
     def __init__(self, cfg: Config, total_iters: int):
         self.sched = make_lr_schedule(cfg, total_iters)
@@ -96,37 +121,49 @@ class Optimizer:
         self.nan_guard = bool(cfg.nan_guard)
 
     def init(self, params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
+        device = next(iter(params.values())).device
         return {"trace": {k: torch.zeros_like(p) for k, p in params.items()},
-                "count": 0, "nonfinite": 0}
+                "count": torch.zeros((), dtype=torch.int64, device=device),
+                "nonfinite": torch.zeros((), dtype=torch.int64,
+                                         device=device)}
 
     @torch.no_grad()
     def update(self, params: Mapping[str, torch.Tensor],
                grads: Mapping[str, torch.Tensor],
-               opt_state: Dict[str, Any]) -> bool:
+               opt_state: Dict[str, Any]) -> None:
         """In-place update of `params` (those named in `grads`) and of
-        `opt_state`. Returns whether the update was applied."""
+        `opt_state`, with no host synchronization."""
         names = list(grads)
         if not names:
-            return True
-        g = [grads[k] for k in names]
-        if self.nan_guard:
-            finite = bool(torch.stack(torch._foreach_norm(g)).isfinite()
-                          .all())
-            opt_state["nonfinite"] = 0 if finite \
-                else opt_state["nonfinite"] + 1
-            if not finite and \
-                    opt_state["nonfinite"] <= MAX_CONSECUTIVE_NONFINITE:
-                return False
+            return
+        g0 = [grads[k] for k in names]
         p = [params[k] for k in names]
         trace = [opt_state["trace"][k] for k in names]
-        lr = self.sched(opt_state["count"])
-        g = torch._foreach_add(g, p, alpha=self.weight_decay)
-        torch._foreach_mul_(trace, self.momentum)
-        torch._foreach_add_(trace, g)
-        torch._foreach_add_(g, trace, alpha=self.momentum)  # nesterov
-        torch._foreach_add_(p, g, alpha=-lr)
-        opt_state["count"] += 1
-        return True
+        count = opt_state["count"]
+        lr = self.sched(count, p[0].dtype)
+        g = torch._foreach_add(g0, p, alpha=self.weight_decay)
+        if not self.nan_guard:
+            torch._foreach_mul_(trace, self.momentum)
+            torch._foreach_add_(trace, g)
+            torch._foreach_add_(g, trace, alpha=self.momentum)  # nesterov
+            torch._foreach_mul_(g, lr)
+            torch._foreach_sub_(p, g)
+            count.add_(1)
+            return
+        # max |g| per tensor is finite iff the tensor is
+        finite = torch.stack(torch._foreach_norm(
+            g0, ord=float("inf"))).isfinite().all()
+        nonfinite = opt_state["nonfinite"]
+        nonfinite.copy_(torch.where(finite, 0, nonfinite + 1))
+        apply = finite | (nonfinite > MAX_CONSECUTIVE_NONFINITE)
+        new_trace = torch._foreach_mul(trace, self.momentum)
+        torch._foreach_add_(new_trace, g)
+        torch._foreach_add_(g, new_trace, alpha=self.momentum)
+        torch._foreach_mul_(g, lr)
+        new_p = torch._foreach_sub(p, g)
+        for dst, src in zip(p + trace, new_p + new_trace):
+            dst.copy_(torch.where(apply, src, dst))
+        count.add_(apply)
 
 
 def make_optimizer(cfg: Config, total_iters: int) -> Optimizer:
@@ -164,10 +201,15 @@ def _dense_outputs(cfg: Config, sem: torch.Tensor, hw) -> torch.Tensor:
 def _dense_criterion(cfg: Config, outputs, labels, outputs_old,
                      icarl_only_dist: bool):
     """Dense full-res criterion selection."""
-    if icarl_only_dist or cfg.bce or cfg.icarl:
-        raise NotImplementedError(
-            "the icarl and bce criteria are not ported yet (ROADMAP A7)")
     labels = labels.long()
+    if icarl_only_dist:
+        return L.icarl_loss(outputs, labels,
+                            torch.sigmoid(outputs_old.to(
+                                wide_dtype(outputs_old.dtype))),
+                            bkg=cfg.icarl_bkg)
+    if cfg.bce or cfg.icarl:
+        return L.bce_with_logits_ignore(outputs, labels,
+                                        reduction="mean_all")
     if cfg.unce and cfg.old_classes != 0:
         return L.unbiased_cross_entropy(outputs, labels, cfg.old_classes)
     return L.cross_entropy(outputs, labels)
@@ -193,9 +235,8 @@ def compute_train_losses(cfg: Config, outputs, feats, labels,
     donor. `outputs` / `outputs_old` are the full-res NHWC logits or None:
     the dense branches upsample `sem` themselves when they are missing."""
     has_old = feats_old is not None
-    if cfg.icarl and has_old:
-        raise NotImplementedError(
-            "the icarl terms are not ported yet (ROADMAP A7)")
+    icarl_combined = cfg.icarl and not cfg.icarl_disjoint and has_old
+    icarl_only_dist = cfg.icarl and cfg.icarl_disjoint and has_old
     sem = feats["sem"]
     hw = tuple(labels.shape[1:3])
     zero = torch.zeros((), dtype=wide_dtype(sem.dtype), device=sem.device)
@@ -216,16 +257,18 @@ def compute_train_losses(cfg: Config, outputs, feats, labels,
     else:
         if outputs is None:
             outputs = _dense_outputs(cfg, sem, hw)
-        loss = _dense_criterion(cfg, outputs, labels, outputs_old, False)
+        if has_old and outputs_old is None and (
+                kd_on or cfg.icarl):
+            outputs_old = _dense_outputs(cfg, feats_old["sem"], hw)
+        loss = _dense_criterion(cfg, outputs, labels, outputs_old,
+                                icarl_only_dist)
         if kd_on:
-            if outputs_old is None:
-                outputs_old = _dense_outputs(cfg, feats_old["sem"], hw)
             lkd = cfg.loss_kd * _dense_kd(cfg, outputs, outputs_old)
     terms["loss"] = loss
 
-    # UCD pixel-contrastive distillation
+    # UCD pixel-contrastive distillation (off under iCaRL's disjoint mode)
     l_con = zero
-    if cfg.contrastive and has_old:
+    if cfg.contrastive and has_old and not icarl_only_dist:
         l_con = ucd_contrastive_loss(
             feats["pre_logits"], labels, feats_old["sem"],
             feats_old["pre_logits"], max_label=cfg.num_classes - 1,
@@ -239,14 +282,20 @@ def compute_train_losses(cfg: Config, outputs, feats, labels,
                           else torch.float32),
         ) * cfg.contrastive_weight
     terms["l_con"] = l_con
-    terms["l_icarl"] = zero
+
+    # iCaRL combined: BCE of the old classes against sigmoid(old logits)
+    l_icarl = zero
+    if icarl_combined:
+        l_icarl = L.icarl_combined_loss(outputs, outputs_old,
+                                        cfg.icarl_importance)
+    terms["l_icarl"] = l_icarl
 
     lde = zero
     if cfg.loss_de > 0 and has_old:
         lde = cfg.loss_de * _lde(feats, feats_old)
     terms["lde"] = lde
     terms["lkd"] = lkd
-    terms["loss_tot"] = loss + l_con + lde + lkd
+    terms["loss_tot"] = loss + l_con + l_icarl + lde + lkd
     return terms
 
 
@@ -256,9 +305,6 @@ def _check_cfg(cfg: Config):
         raise NotImplementedError(
             f"config fields {bad} steer the TPU execution of the JAX "
             f"package; the port implements only their defaults")
-    if cfg.regularizer is not None:
-        raise NotImplementedError(
-            "the EWC/PI/RW regularizers are not ported yet (ROADMAP A7)")
 
 
 def _step_device(device, model, model_old) -> torch.device:
@@ -286,9 +332,91 @@ def _batch(batch, device):
     return images.permute(0, 3, 1, 2), labels
 
 
+def _no_mark(name: str) -> None:
+    return None
+
+
 def _nhwc(feats: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.permute(0, 2, 3, 1).contiguous() if k == "sem"
             else v.permute(0, 2, 3, 1) for k, v in feats.items()}
+
+
+def _make_core(cfg: Config, model, model_old, total_iters: int,
+               step_idx: Optional[int]):
+    """The step after the upload, shared by `make_train_step` and
+    `make_train_bundle`: core(state, x, labels, old_vars, mark) ->
+    metrics, with x the NCHW view of the images and labels on the model's
+    device. It reads and writes only device tensors that live in `state`,
+    the model and `old_vars`, and never synchronizes with the host."""
+    _check_cfg(cfg)
+    step_idx = cfg.step if step_idx is None else step_idx
+    if cfg.dataset == "city_domain":
+        step_idx = 0  # single fixed head keeps training (domain-incremental)
+    tx = make_optimizer(cfg, total_iters)
+    has_old = model_old is not None
+    # the contrastive term reads the attended pre_logits of both models
+    need_att = (cfg.loss_de > 0 or cfg.contrastive) and has_old
+
+    mask = trainable_mask(
+        [n for n, _ in model.named_parameters()], step_idx,
+        freeze_body=cfg.freeze, fix_bn=cfg.fix_bn,
+        freeze_cls0_always=cfg.freeze_cls0_always)
+    reg = cfg.regularizer is not None
+    for name, p in model.named_parameters():
+        # a regularizer's accumulators read every parameter's gradient
+        p.requires_grad_(mask[name] or reg)
+    if has_old:
+        model_old.eval().requires_grad_(False)
+
+    def core(state: TrainState, x, labels, old_vars, mark):
+        if state.model is not model:
+            raise ValueError("state.model is not the model this step was "
+                             "built for")
+        feats_old = None
+        if has_old:
+            # frozen donor forward, eval mode
+            with torch.no_grad():
+                _, feats_old = functional_call(
+                    model_old, old_vars, (x,),
+                    {"upsample": False, "attention": need_att})
+            feats_old = _nhwc(feats_old)
+        mark("donor_forward")
+
+        model.train(not cfg.fix_bn)
+        feats = _nhwc(model.forward_feats(x, attention=need_att))
+        mark("forward")
+        terms = compute_train_losses(cfg, None, feats, labels, None,
+                                     feats_old)
+        mark("losses")
+        params = {n: p for n, p in model.named_parameters()
+                  if p.requires_grad}
+        for p in params.values():
+            p.grad = None
+        terms["loss_tot"].backward()
+        mark("backward")
+        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
+                 for n, p in params.items()}
+        metrics = {k: v.detach() for k, v in terms.items()}
+        metrics["l_reg"] = torch.zeros_like(metrics["loss_tot"])
+        if state.reg_state is not None:
+            # accumulators from the main loss's gradients, then the
+            # penalty's analytic gradient, before the mask
+            R.update(state.reg_state, grads, params)
+            l_reg, pgrad = R.penalty_and_grad(state.reg_state, params,
+                                              cfg.reg_importance)
+            if l_reg is not None:
+                metrics["l_reg"] = l_reg.to(metrics["loss_tot"].dtype)
+                grads = dict(zip(grads, torch._foreach_add(
+                    list(grads.values()), [pgrad[n] for n in grads])))
+        tx.update({n: params[n] for n in params if mask[n]},
+                  {n: grads[n] for n in params if mask[n]},
+                  state.opt_state)
+        mark("optimizer")
+        metrics["lr"] = tx.sched(state.step, metrics["loss_tot"].dtype)
+        state.step.add_(1)
+        return metrics
+
+    return core
 
 
 def make_train_step(cfg: Config, model, model_old, total_iters: int,
@@ -310,67 +438,154 @@ def make_train_step(cfg: Config, model, model_old, total_iters: int,
     each of its parts ("start", "upload", "donor_forward", "forward",
     "losses", "backward", "optimizer"), for a caller that times the parts
     (a CUDA event per call)."""
-    _check_cfg(cfg)
     dev = _step_device(device, model, model_old)
-    mark = mark or (lambda name: None)
-    step_idx = cfg.step if step_idx is None else step_idx
-    if cfg.dataset == "city_domain":
-        step_idx = 0  # single fixed head keeps training (domain-incremental)
-    tx = make_optimizer(cfg, total_iters)
-    has_old = model_old is not None
-    # the contrastive term reads the attended pre_logits of both models
-    need_att = (cfg.loss_de > 0 or cfg.contrastive) and has_old
-
-    mask = trainable_mask(
-        [n for n, _ in model.named_parameters()], step_idx,
-        freeze_body=cfg.freeze, fix_bn=cfg.fix_bn,
-        freeze_cls0_always=cfg.freeze_cls0_always)
-    for name, p in model.named_parameters():
-        p.requires_grad_(mask[name])
-    if has_old:
-        model_old.eval().requires_grad_(False)
+    mark = mark or _no_mark
+    core = _make_core(cfg, model, model_old, total_iters, step_idx)
 
     def train_step(state: TrainState, batch, old_vars=None):
-        if state.model is not model:
-            raise ValueError("state.model is not the model this step was "
-                             "built for")
         mark("start")
         x, labels = _batch(batch, dev)
         mark("upload")
-
-        feats_old = None
-        if has_old:
-            # frozen donor forward, eval mode
-            with torch.no_grad():
-                _, feats_old = functional_call(
-                    model_old, old_vars, (x,),
-                    {"upsample": False, "attention": need_att})
-            feats_old = _nhwc(feats_old)
-        mark("donor_forward")
-
-        model.train(not cfg.fix_bn)
-        feats = _nhwc(model.forward_feats(x, attention=need_att))
-        mark("forward")
-        terms = compute_train_losses(cfg, None, feats, labels, None,
-                                     feats_old)
-        mark("losses")
-        params = {n: p for n, p in model.named_parameters() if mask[n]}
-        for p in params.values():
-            p.grad = None
-        terms["loss_tot"].backward()
-        mark("backward")
-        grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
-                 for n, p in params.items()}
-        tx.update(params, grads, state.opt_state)
-        mark("optimizer")
-
-        metrics = {k: v.detach() for k, v in terms.items()}
-        metrics["l_reg"] = torch.zeros_like(metrics["loss_tot"])
-        metrics["lr"] = tx.sched(state.step)
-        state.step += 1
-        return state, metrics
+        return state, core(state, x, labels, old_vars, mark)
 
     return train_step
+
+
+# the kernels' launch counters (function, attribute): a replay of a
+# captured step launches without calling the wrappers, so the bundle adds
+# what the capture counted once per replay
+def _launch_counters():
+    return [(fn, name) for fn in (FL.fused_ce_kd, FE.fused_argmax,
+                                  TT.pixel_contrastive_loss_tiled)
+            for name in sorted(vars(fn)) if name.startswith("launches")]
+
+
+def _read_counters() -> list:
+    return [getattr(fn, name) for fn, name in _launch_counters()]
+
+
+def _add_counters(delta) -> None:
+    for (fn, name), d in zip(_launch_counters(), delta):
+        setattr(fn, name, getattr(fn, name) + d)
+
+
+def _state_tensors(state: TrainState, old_vars) -> list:
+    """Every tensor a captured step reads or writes besides its inputs."""
+    opt = state.opt_state
+    return [*state.model.parameters(), *state.model.buffers(),
+            *opt["trace"].values(), opt["count"], opt["nonfinite"],
+            state.step, *R.state_tensors(state.reg_state),
+            *(old_vars.values() if old_vars is not None else ())]
+
+
+def _stack_rows(rows) -> Dict[str, torch.Tensor]:
+    return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
+
+
+class _Capture:
+    """One train step captured in a CUDA graph over static input buffers,
+    with the launches the capture counted and the state it is bound to."""
+
+    def __init__(self, core, state, images, labels, old_vars, stream):
+        self.image = torch.empty_like(images)
+        self.label = torch.empty_like(labels)
+        self.image.copy_(images)
+        self.label.copy_(labels)
+        self.bound = [t.data_ptr() for t in _state_tensors(state, old_vars)]
+        self.graph = torch.cuda.CUDAGraph()
+        before = _read_counters()
+        t0 = time.perf_counter()
+        try:
+            with torch.cuda.graph(self.graph, stream=stream,
+                                  capture_error_mode="thread_local"):
+                self.out = core(state, self.image.permute(0, 3, 1, 2),
+                                self.label, old_vars, _no_mark)
+        except Exception as e:
+            raise RuntimeError(
+                f"CUDA-graph capture of the train step failed: {e}") from e
+        self.capture_s = time.perf_counter() - t0
+        after = _read_counters()
+        # the capture launched nothing: its counts move to the replays
+        self.launches = [a - b for a, b in zip(after, before)]
+        _add_counters([-d for d in self.launches])
+
+    def replay(self, state, images, labels, old_vars) -> dict:
+        if [t.data_ptr() for t in _state_tensors(state, old_vars)] \
+                != self.bound:
+            raise RuntimeError(
+                "the train state or the donor's variables were rebound "
+                "since the capture: update them in place (copy_) so the "
+                "captured step reads them")
+        self.image.copy_(images)
+        self.label.copy_(labels)
+        self.graph.replay()
+        _add_counters(self.launches)
+        return {k: v.clone() for k, v in self.out.items()}
+
+
+def make_train_bundle(cfg: Config, model, model_old, total_iters: int,
+                      k: int, step_idx: Optional[int] = None, device=None):
+    """K train steps per call, the same math as K calls of
+    `make_train_step` (whose step it runs).
+
+    Returns fn(state, batches, old_vars=None) -> (state, metrics) with
+    batches = {'image': (K,B,H,W,3), 'label': (K,B,H,W)} and each metric
+    stacked (K,), as the JAX package's `lax.scan` returns them. On CUDA the
+    first call runs slot 0 as an eager step (it also warms up what the
+    kernels upload once), then captures one step in a CUDA graph over
+    static input buffers, and every later slot copies its batch into them
+    and replays the graph: one host dispatch per step instead of some
+    thousands. A failed capture raises. The graph reads the state where it
+    was at the capture, so state tensors must be updated in place
+    (`load_state_dict`, `copy_`), never rebound: the bundle raises if they
+    were. Eager steps between calls are fine. On the CPU it runs the step
+    K times. `fn.capture` holds the capture (its `capture_s`, launches per
+    replay) once made."""
+    if k < 1:
+        raise ValueError(f"k must be >= 1, got {k}")
+    dev = _step_device(device, model, model_old)
+    core = _make_core(cfg, model, model_old, total_iters, step_idx)
+
+    def train_bundle(state: TrainState, batches, old_vars=None):
+        images = torch.as_tensor(batches["image"]).to(dev)
+        labels = torch.as_tensor(batches["label"]).to(dev)
+        if images.shape[0] != k or labels.shape[0] != k:
+            raise ValueError(f"expected {k} stacked batches, got "
+                             f"{images.shape[0]} images, {labels.shape[0]} "
+                             f"labels")
+        rows, start = [], 0
+        if dev.type != "cuda":
+            for i in range(k):
+                rows.append(core(state, images[i].permute(0, 3, 1, 2),
+                                 labels[i], old_vars, _no_mark))
+            return state, _stack_rows(rows)
+        cap = train_bundle.capture
+        if cap is None:
+            # slot 0 is a real step of the trajectory, run eagerly on the
+            # stream the capture then uses
+            stream = torch.cuda.Stream(dev)
+            stream.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(stream):
+                rows.append(core(state, images[0].permute(0, 3, 1, 2),
+                                 labels[0], old_vars, _no_mark))
+            torch.cuda.current_stream(dev).wait_stream(stream)
+            cap = train_bundle.capture = _Capture(
+                core, state, images[0], labels[0], old_vars, stream)
+            start = 1
+        elif tuple(cap.image.shape) != tuple(images.shape[1:]) \
+                or cap.image.dtype != images.dtype \
+                or tuple(cap.label.shape) != tuple(labels.shape[1:]) \
+                or cap.label.dtype != labels.dtype:
+            raise ValueError(
+                f"the bundle was captured for batches of "
+                f"{tuple(cap.image.shape)} {cap.image.dtype} images and "
+                f"{tuple(cap.label.shape)} {cap.label.dtype} labels")
+        for i in range(start, k):
+            rows.append(cap.replay(state, images[i], labels[i], old_vars))
+        return state, _stack_rows(rows)
+
+    train_bundle.capture = None
+    return train_bundle
 
 
 def make_eval_step(cfg: Config, model, model_old=None, device=None):
@@ -428,13 +643,15 @@ def make_eval_step(cfg: Config, model, model_old=None, device=None):
             preds = FE.fused_argmax(sem, hw)
         else:
             outputs = _dense_outputs(cfg, sem, hw)
-            icarl_only_dist = cfg.icarl and cfg.icarl_disjoint and has_old
-            loss = _dense_criterion(cfg, outputs, labels, None,
+            outputs_old = _dense_outputs(cfg, feats_old["sem"], hw) \
+                if use_old and (kd_on or cfg.icarl) else None
+            # iCaRL's disjoint criterion needs the donor's logits: without
+            # its variables the step takes the BCE criterion
+            icarl_only_dist = cfg.icarl and cfg.icarl_disjoint and use_old
+            loss = _dense_criterion(cfg, outputs, labels, outputs_old,
                                     icarl_only_dist)
             if kd_on:
-                # unscaled, logging only
-                lkd = _dense_kd(cfg, outputs,
-                                _dense_outputs(cfg, feats_old["sem"], hw))
+                lkd = _dense_kd(cfg, outputs, outputs_old)  # logging only
             preds = outputs.argmax(dim=-1).to(torch.int32)
 
         hist = confusion_matrix_update(hist, labels, preds, n_classes)
@@ -445,4 +662,4 @@ def make_eval_step(cfg: Config, model, model_old=None, device=None):
 
 __all__ = ["TrainState", "Optimizer", "make_lr_schedule",
            "make_optimizer", "compute_train_losses", "make_train_step",
-           "make_eval_step"]
+           "make_train_bundle", "make_eval_step"]
