@@ -66,6 +66,18 @@ Phases (any failure exits non-zero, and no result line is printed):
         `l_reg` > 0; B1/B2 only) and its k=3 bundle bit for bit, one LWF-MC
         step (iCaRL's dense BCE criterion, no fused kernel), and one f32
         ResNet-50 RW step on the card against the CPU;
+     f. (run after phase 4) data parallelism (ucd_torch/parallel) on a
+        process group of one rank over NCCL (a file:// rendezvous), from
+        one snapshot of 3b's state: the synchronized BatchNorm against
+        the plain one at three of the step's shapes; one validate step
+        and one train step inside the group against the same outside it,
+        at bf16 and at f32 (loss terms and updates within 3b's bf16 bound
+        or twice what a rounding-only change of the plain step moves
+        them, cuDNN off; the confusion matrix exact; B1-B6 counted on the
+        path); 12 steps eagerly and through make_train_bundle(k=4), NCCL
+        inside the captured graph, bit for bit; img/s eager and captured, capture
+        seconds, NCCL device time and the model's train-mode forward +
+        backward outside the group, inside it and outside it again;
   4. time each kernel three ways (its own device time from a
      torch.profiler window, CUDA events around the wrapper calls, the
      host's enqueue time a call) beside its plain version, one library
@@ -82,16 +94,18 @@ Phases (any failure exits non-zero, and no result line is printed):
 
 After phase 4 come `{"serving": ...}`, `{"training": ...}`, `{"bundle":
 ...}` (phase 3d's verdict and launches, the eager-vs-captured timing, the
-failing capture, the loop at steps_per_call 1 and 4), `{"families": ...}`
-and `{"experiment": ...}` (phase 3c's seconds per step, epoch img/s, loader
+failing capture, the loop at steps_per_call 1 and 4), `{"families": ...}`,
+`{"dp": ...}` (phase 3f) and `{"experiment": ...}` (phase 3c's seconds per
+step, epoch img/s, loader
 and checkpoint times, launches and peak memory, beside phase 4's raw UCD
 step img/s). The last three lines of stdout are the `{"kernels": [...]}` record
 (each row's `ms` / `kernel_ms` the device time, `wrapper_ms` the events',
 `launches_experiment` its launches in phase 3c), the
 card's name and power limit (nvidia-smi), and `{"ok": true, "device": ...}`.
 `--profile DIR` also writes torch.profiler tables of predict_labels and of
-the train step there. `--only kernels` stops after phase 2 and prints no
-result (for bringing a kernel up).
+the train step there. `--only kernels` stops after phase 2, `--only dp`
+runs phases 1, 3b and 3f; neither prints a result (for bringing a kernel
+or the data-parallel path up).
 """
 
 from __future__ import annotations
@@ -122,6 +136,7 @@ import torch.nn.functional as F  # noqa: E402
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
 from ucd_torch import config as C  # noqa: E402
+from ucd_torch import parallel as P  # noqa: E402
 from ucd_torch.engine.export import (_bucket_hw, load_inference,  # noqa: E402
                                      save_inference)
 from ucd_torch.engine.metrics import (empty_confusion,  # noqa: E402
@@ -1466,6 +1481,383 @@ def finite_terms(history, what):
         assert all(np.isfinite(v) for v in m.values()), (what, i, m)
 
 
+# ---------------------------------------------------------------------------
+# phase 3f: the data-parallel path on a process group of one rank (NCCL)
+# ---------------------------------------------------------------------------
+
+# the bound of phase 3b's kernels-vs-dense check (bf16 rounding): loss
+# terms relative, each parameter's update against its largest entry
+DP_VS_PLAIN = CON_BF16_VS_DENSE
+
+
+def step_and_validate(cfg, model, model_old, state, old_vars, batch, val):
+    """One validate step on `val`, then one train step on `batch` (both
+    built here, so inside a process group they take its collectives).
+    Returns (the step's metrics, the state after it, the confusion matrix,
+    the validate losses)."""
+    step = make_train_step(cfg, model, model_old, total_iters=100)
+    eval_step = make_eval_step(cfg, model, model_old)
+    hist, terms, _ = eval_step(None, val, empty_confusion(cfg.tot_classes),
+                               old_vars)
+    _, m = step(state, batch, old_vars)
+    after = snapshot(state, model)
+    torch.cuda.synchronize()
+    return ({k: float(v) for k, v in m.items()}, after, hist.cpu(),
+            {k: float(v) for k, v in terms.items()})
+
+
+def img_per_s_windows(fn, images, n_windows=2) -> list:
+    """img/s of `n_windows` windows of fn() (`images` a call), host clock,
+    synchronized at each window's ends."""
+    out = []
+    for _ in range(n_windows):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        out.append(images / (time.perf_counter() - t0))
+    return out
+
+
+def nccl_device_ms(fn, n) -> dict:
+    """The device time a call of fn() spends in NCCL kernels (torch.profiler
+    by kernel name, over n calls), their count a call, and every kernel's
+    time a call."""
+    from torch.profiler import ProfilerActivity
+    from torch.profiler import profile as tprofile
+
+    fn()
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU,
+                              ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    nccl_us = busy_us = 0.0
+    calls = 0
+    for evt in prof.key_averages():
+        if evt.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        busy_us += evt.self_device_time_total
+        if "nccl" in evt.key.lower():
+            nccl_us += evt.self_device_time_total
+            calls += evt.count
+    return {"nccl_ms": nccl_us / 1e3 / n, "nccl_kernels": calls / n,
+            "busy_ms": busy_us / 1e3 / n}
+
+
+def time_dp_side(tr, batches, name) -> dict:
+    """One side of the data-parallel timing (`name` "plain" outside a
+    process group, "dist" inside one): the UCD step's img/s eager (windows
+    of 8 steps) and through make_train_bundle(k=4) (windows of 2 calls),
+    the capture's seconds, the device busy time a step (eager: profiler;
+    captured: the graph replayed back to back, CUDA events), the NCCL
+    kernels' device time a step (eager), and the device time of the
+    model's train-mode forward + backward alone (the synchronized
+    BatchNorm's cost, inside a group). The state is restored after."""
+    cfg, model, model_old = tr["cfg"], tr["model"], tr["model_old"]
+    state, old_vars = tr["state"], tr["old_vars"]
+    snap = snapshot(state, model)
+    step = make_train_step(cfg, model, model_old, total_iters=100)
+    bundle = make_train_bundle(cfg, model, model_old, total_iters=100,
+                               k=BUNDLE_K)
+    stack = stacked(batches[:BUNDLE_K])
+    bundle(state, stack, old_vars)          # slot 0 eager, then capture
+    step(state, batches[0], old_vars)
+    r = {"capture_s": bundle.capture.capture_s}
+
+    def eager():
+        for i in range(8):
+            step(state, batches[i % len(batches)], old_vars)
+
+    def captured():
+        for _ in range(2):
+            bundle(state, stack, old_vars)
+
+    r["eager_img_per_s_runs"] = img_per_s_windows(eager, 8 * BATCH)
+    r["captured_img_per_s_runs"] = img_per_s_windows(
+        captured, 2 * BUNDLE_K * BATCH)
+    prof = nccl_device_ms(lambda: step(state, batches[0], old_vars), 3)
+    # the captured step's device time: its graph replayed back to back
+    # (CUDA events; no profiler window over a graph's replay)
+    r["busy_ms"] = {"eager": prof["busy_ms"],
+                    "captured": cuda_ms(bundle.capture.graph.replay,
+                                        iters=10, warmup=2)}
+    r["nccl_ms"], r["nccl_kernels"] = prof["nccl_ms"], prof["nccl_kernels"]
+    x = torch.from_numpy(batches[0]["image"]).to(
+        next(model.parameters()).device).permute(0, 3, 1, 2)
+
+    def fwd_bwd():
+        model.train()
+        feats = model.forward_feats(x)
+        feats["sem"].float().sum().backward()
+        for p in model.parameters():
+            p.grad = None
+
+    r["fwd_bwd_busy_ms"] = busy_ms(fwd_bwd, 3)
+    del bundle
+    restore(state, model, snap)
+    torch.cuda.empty_cache()
+    log(f"[dp] {name}: eager img/s {r['eager_img_per_s_runs']}, captured "
+        f"(K={BUNDLE_K}) img/s {r['captured_img_per_s_runs']}, capture "
+        f"{r['capture_s']:.3f} s, device busy a step {r['busy_ms']}, NCCL "
+        f"kernels a step {r['nccl_kernels']} taking {r['nccl_ms']:.4f} ms, "
+        f"train-mode forward + backward {r['fwd_bwd_busy_ms']:.2f} ms")
+    return r
+
+
+def dp_deviation(before, ref, other) -> dict:
+    """How far `other` (metrics, state after a step from `before`) is from
+    `ref`: the loss terms' largest relative difference; each parameter
+    update's largest difference against the update's largest entry (the
+    worst tensor), and over all parameters, the difference's norm against
+    the update's; whether the bits are equal. The frozen `cls_0` must be
+    unchanged on both sides."""
+    (rm, ra), (om, oa) = ref, other
+    terms = max(abs(om[k] - rm[k]) / abs(rm[k])
+                for k in ("loss", "lkd", "l_con", "loss_tot"))
+    worst, num, den, n_params, equal = 0.0, 0.0, 0.0, 0, True
+    for k, v in ra.items():
+        equal = equal and torch.equal(v, oa[k])
+        if not k.startswith("model.") or not v.is_floating_point() or \
+                k.endswith(("running_mean", "running_var")):
+            continue
+        up_r, up_o = (v - before[k]).double(), (oa[k] - before[k]).double()
+        if k.startswith("model.cls_0."):
+            assert not up_r.any() and not up_o.any(), k
+            continue
+        n_params += 1
+        worst = max(worst, float((up_o - up_r).abs().max())
+                    / (float(up_r.abs().max()) + 1e-30))
+        num += float((up_o - up_r).norm()) ** 2
+        den += float(up_r.norm()) ** 2
+    assert den > 0, "the reference step updated no parameter"
+    return {"terms_rel_err": terms, "worst_update_err": worst,
+            "update_rel_err": (num / max(den, 1e-300)) ** 0.5,
+            "n_params": n_params, "bits_equal": equal}
+
+
+# the synchronized BatchNorm against the plain one on the card, f32, one
+# rank: output and running statistics against their largest entry, the
+# gradients (dx cancellation-dominated) against theirs
+SYNC_BN_TOL = (1e-5, 1e-4)
+SYNC_BN_SHAPES = ((BATCH, 256, SIZE // 4, SIZE // 4),   # the largest
+                  (BATCH, 2048, SIZE // 16, SIZE // 16),
+                  (BATCH, 256, 1, 1))                   # ASPP pooling
+
+
+def batchnorm_run(shape, dev, seed) -> dict:
+    """A train-mode `BatchNorm2d` forward + backward on a seeded f32
+    channels_last input (channel 0 constant: no variance): output, input
+    gradient, weight and bias gradients, running statistics. Outside a
+    process group the plain path (cuDNN), inside one the synchronized
+    one."""
+    from ucd_torch.models.layers import BatchNorm2d
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[1]
+    x = (torch.randn(shape, device=dev, generator=g) * 2 + 0.5).contiguous(
+        memory_format=torch.channels_last)
+    x[:, 0] = 0.0
+    dy = torch.randn(shape, device=dev, generator=g).contiguous(
+        memory_format=torch.channels_last)
+    bn = BatchNorm2d(c, eps=1e-5, momentum=0.1).to(dev)
+    with torch.no_grad():
+        bn.weight.copy_(torch.rand(c, device=dev, generator=g) + 0.5)
+        bn.bias.copy_(torch.randn(c, device=dev, generator=g))
+    x.requires_grad_(True)
+    y = bn(x)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    return {"y": y.detach(), "dx": x.grad, "dw": bn.weight.grad,
+            "db": bn.bias.grad, "running_mean": bn.running_mean,
+            "running_var": bn.running_var}
+
+
+def check_sync_batchnorm(refs, dev) -> float:
+    """Inside a process group of one rank: `batchnorm_run` of each
+    SYNC_BN_SHAPES against `refs`, the same runs outside it. Returns the
+    largest error against its bound's scale, as a share of the bound."""
+    worst = 0.0
+    for i, shape in enumerate(SYNC_BN_SHAPES):
+        got = batchnorm_run(shape, dev, seed=160 + i)
+        for k, want in refs[i].items():
+            tol = SYNC_BN_TOL[1] if k in ("dx", "dw", "db") \
+                else SYNC_BN_TOL[0]
+            err = float((got[k] - want).abs().max()) / (
+                float(want.abs().max()) + 1e-30)
+            assert err <= tol, (shape, k, err, tol)
+            worst = max(worst, err / tol)
+    return worst
+
+
+def check_dp_deviation(dp, rounding, what) -> None:
+    """The data-parallel step may move from the plain step by no more than
+    DP_VS_PLAIN (phase 3b's bf16 bound) or twice what a rounding-only
+    change of the plain step moves it (cuDNN off), whichever is larger:
+    the loss terms, the update overall and the worst tensor's update."""
+    for key, floor in (("terms_rel_err", DP_VS_PLAIN[0]),
+                       ("update_rel_err", DP_VS_PLAIN[1]),
+                       ("worst_update_err", DP_VS_PLAIN[1])):
+        bound = max(floor, 2 * rounding[key])
+        assert dp[key] <= bound, (what, key, dp[key], bound, dp, rounding)
+
+
+def f32_twin(tr, dev):
+    """Phase 3b's model and donor at float32 compute (TF32 off), from the
+    same variables, with a fresh optimizer: (cfg, model, donor, state,
+    donor variables). The bf16 step's gradient is dominated by rounding
+    (a rounding-only change moves it by its own size), so the comparison
+    that can tell a fault from rounding runs in f32."""
+    cfg = dataclasses.replace(tr["cfg"], dtype="float32")
+    model, model_old, state, old_vars = build_train(
+        dev, cfg, {k: v for k, v in tr["old_vars"].items()})
+    with torch.no_grad():
+        model.load_state_dict(tr["model"].state_dict())
+    return cfg, model, model_old, state, old_vars
+
+
+def phase_dp(dev, tr, where) -> dict:
+    """The data-parallel path (ucd_torch/parallel) on a process group of
+    one rank over NCCL, at phase 3b's full width: its collectives carry
+    identity values but launch (the communicator, the synchronized
+    BatchNorm's all-gathers and all-reduces, the contrastive term's gather,
+    the gradient all-reduce, the confusion all-reduce). From one snapshot
+    of 3b's state: one validate step + one step outside the group and
+    inside it, at bf16 and again at f32 (`check_dp_deviation`: loss terms
+    and updates within DP_VS_PLAIN or twice a rounding-only change of the
+    plain step; the validate step's confusion matrix and losses exact, as
+    it synchronizes no BatchNorm; B1-B6 counted on the path); 12 steps
+    inside it eagerly and through make_train_bundle(k=4), NCCL in the
+    captured graph, bit
+    for bit; img/s eager and captured, NCCL device time and the model's
+    forward + backward, outside the group, inside it and outside it again.
+    The group is destroyed at the end."""
+    cfg, model, model_old = tr["cfg"], tr["model"], tr["model_old"]
+    state, old_vars = tr["state"], tr["old_vars"]
+    batches = train_batches(BUNDLE_STEPS, BATCH, SIZE, cfg.tot_classes,
+                            seed=130)
+    val = train_batches(1, BATCH, SIZE, cfg.tot_classes, seed=150)[0]
+    # the schedule restarts: the earlier phases' steps take the count past
+    # total_iters, where the poly rate is 0 and a step updates nothing
+    with torch.no_grad():
+        state.opt_state["count"].zero_()
+        state.step.zero_()
+    snap = snapshot(state, model)
+    assert not P.is_distributed()
+    plain = step_and_validate(cfg, model, model_old, state, old_vars,
+                              batches[0], val)
+    restore(state, model, snap)
+    # the same step with other rounding (cuDNN off: PyTorch's own
+    # convolutions and BatchNorm), for the size of a rounding-only change
+    with torch.backends.cudnn.flags(enabled=False):
+        alt = step_and_validate(cfg, model, model_old, state, old_vars,
+                                batches[0], val)
+    restore(state, model, snap)
+    bn_refs = [batchnorm_run(sh, dev, seed=160 + i)
+               for i, sh in enumerate(SYNC_BN_SHAPES)]
+    # the same two at float32
+    twin = f32_twin(tr, dev)
+    snap32 = snapshot(twin[3], twin[1])
+    plain32 = step_and_validate(*twin, batches[0], val)
+    restore(twin[3], twin[1], snap32)
+    with torch.backends.cudnn.flags(enabled=False):
+        alt32 = step_and_validate(*twin, batches[0], val)
+    restore(twin[3], twin[1], snap32)
+    timing = {"plain": time_dp_side(tr, batches, "plain")}
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        P.init_group(f"file://{tmp}/rendezvous", 1, 0, device=dev)
+        try:
+            assert P.is_distributed() and P.world_size() == 1
+            assert torch.distributed.get_backend() == P.distributed \
+                .backend_for(dev) == "nccl" if dev.type == "cuda" else True
+            out["sync_batchnorm_worst_share_of_bound"] = \
+                check_sync_batchnorm(bn_refs, dev)
+            del bn_refs
+            # ---- the main path: counts set to 0 here, read right after
+            zero_kernel_counts()
+            dist = step_and_validate(cfg, model, model_old, state,
+                                     old_vars, batches[0], val)
+            counts = kernel_counts()
+            # ---------------------------------------------------------
+            restore(state, model, snap)
+            out["launches"] = counts
+            for key in TRAIN_COUNTERS + ("contrastive_pass1_mma",
+                                         "contrastive_pass2_mma",
+                                         "contrastive_bwd_mma"):
+                want = 2 if key == "fused_loss_fwd" else 1  # + validate
+                assert counts[key] == want, (key, counts)
+            assert counts["fused_argmax"] == 1, counts
+            dist32 = step_and_validate(*twin, batches[0], val)
+            out["vs_plain"] = dp_deviation(snap, plain[:2], dist[:2])
+            out["rounding_only"] = dp_deviation(snap, plain[:2], alt[:2])
+            out["vs_plain_f32"] = dp_deviation(snap32, plain32[:2],
+                                               dist32[:2])
+            out["rounding_only_f32"] = dp_deviation(snap32, plain32[:2],
+                                                    alt32[:2])
+            log(f"[dp] against the plain step, bf16: {out['vs_plain']}; "
+                f"the plain step with cuDNN off: {out['rounding_only']}; "
+                f"f32: {out['vs_plain_f32']}; f32 with cuDNN off: "
+                f"{out['rounding_only_f32']}")
+            check_dp_deviation(out["vs_plain"], out["rounding_only"],
+                               "bf16")
+            check_dp_deviation(out["vs_plain_f32"],
+                               out["rounding_only_f32"], "f32")
+            assert torch.equal(plain32[2], dist32[2])
+            del twin, snap32, plain32, alt32, dist32
+            assert torch.equal(plain[2], dist[2]), "confusion matrices differ"
+            assert int(dist[2].sum()) == int((val["label"] != 255).sum())
+            out["confusion_total"] = int(dist[2].sum())
+            assert dist[3] == plain[3], (dist[3], plain[3])
+            out["metrics_plain"], out["metrics_dist"] = plain[0], dist[0]
+            step = make_train_step(cfg, model, model_old, total_iters=100)
+            bundle = make_train_bundle(cfg, model, model_old,
+                                       total_iters=100, k=BUNDLE_K)
+            bits = bits_eager_vs_bundle(step, bundle, BUNDLE_K, state, model,
+                                        batches, old_vars,
+                                        {"bundle": "b" * (BUNDLE_STEPS //
+                                                          BUNDLE_K)})
+            for key in TRAIN_COUNTERS:
+                assert bits["launches_bundle"][key] == BUNDLE_STEPS, bits
+            out["bundle"] = {k: v for k, v in bits.items()}
+            out["bundle"]["capture_s"] = bundle.capture.capture_s
+            del bundle, step
+            torch.cuda.empty_cache()
+            timing["dist"] = time_dp_side(tr, batches, "dist")
+        finally:
+            P.shutdown()
+    assert not P.is_distributed()
+    timing["plain_again"] = time_dp_side(tr, batches, "plain, again")
+    out["timing"] = timing
+    v, r = out["vs_plain"], out["rounding_only"]
+    log(f"[dp] one NCCL rank, UCD VOC 15-5s step 1, ResNet-101, batch "
+        f"{BATCH}, {SIZE}x{SIZE}, bf16, on {where}: one step against the "
+        f"plain step from one state: loss terms within "
+        f"{v['terms_rel_err']:.3g} (bound {DP_VS_PLAIN[0]}), the "
+        f"{v['n_params']} parameters' updates within "
+        f"{v['update_rel_err']:.3g} overall, the worst tensor "
+        f"{v['worst_update_err']:.3g} of its largest entry (the plain step "
+        f"with cuDNN off: {r['terms_rel_err']:.3g}, "
+        f"{r['update_rel_err']:.3g}, {r['worst_update_err']:.3g}), bits "
+        f"equal: {v['bits_equal']}; at f32: "
+        + ", ".join(f"{out['vs_plain_f32'][k]:.3g}" for k in (
+            "terms_rel_err", "update_rel_err", "worst_update_err"))
+        + " (cuDNN off: " + ", ".join(
+            f"{out['rounding_only_f32'][k]:.3g}" for k in (
+                "terms_rel_err", "update_rel_err", "worst_update_err"))
+        + f"); the synchronized BatchNorm against the plain one at "
+        f"{len(SYNC_BN_SHAPES)} shapes within "
+        f"{out['sync_batchnorm_worst_share_of_bound']:.3g} of its bounds "
+        f"{SYNC_BN_TOL}; the validate step's confusion matrix "
+        f"equal ({out['confusion_total']} pixels); launches "
+        f"{json.dumps(out['launches'])}; {BUNDLE_STEPS} steps eager and "
+        f"through make_train_bundle(k={BUNDLE_K}) with NCCL in the graph: "
+        + ("the same bits in all state tensors and per-step metrics"
+           if out["bundle"]["exact"] else "within two eager runs' spread")
+        + f", replays' tally {json.dumps(out['bundle']['launches_bundle'])}")
+    return out
+
+
 def phase_families(dev) -> dict:
     """RW at full width (ResNet-101, batch 8, 512x512, bf16 with f32
     masters): 3 iterations of VOC 15-5s step 0, its `export_state` fed to
@@ -2524,8 +2916,9 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also write torch.profiler tables of "
                          "predict_labels and of the train step into DIR")
-    ap.add_argument("--only", choices=["kernels"], default=None,
-                    help="stop after the kernel checks (prints no result)")
+    ap.add_argument("--only", choices=["kernels", "dp"], default=None,
+                    help="kernels: stop after the kernel checks; dp: build, "
+                         "then phases 3b and 3f only (prints no result)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the "
@@ -2555,6 +2948,11 @@ def main(argv=None) -> int:
                   and "0 bytes spill stores, 0 bytes spill loads" not in ln]
         assert not spills, f"{name}: register spills: {spills}"
     lap("1 build")
+
+    if args.only == "dp":
+        phase_dp(dev, phase_train(dev), where)
+        lap("3b + 3f")
+        return 0
 
     # phase 2: every kernel against its plain version
     err = phase_kernels(dev)
@@ -2595,6 +2993,7 @@ def main(argv=None) -> int:
     families = phase_families(dev)
     lap("3e method families")
 
+
     # phase 4: timings
     timing = time_fused_argmax(dev, where)
     loss_timing = time_fused_loss(dev, where)
@@ -2607,6 +3006,12 @@ def main(argv=None) -> int:
     loop = time_experiment(dev, where)
     failure = check_capture_failure()
     lap("4 timings")
+
+    # phase 3f: the data-parallel path on one NCCL rank (it sets the
+    # counts to 0 and reads them); after phase 4, whose profiler windows
+    # lost kernel events once this phase had run before them
+    dp = phase_dp(dev, trained, where)
+    lap("3f data parallelism (one NCCL rank)")
     log(json.dumps({"bundle": {
         "card": where, "bits": bundled, "timing": captured,
         "capture_failure": failure,
@@ -2614,6 +3019,7 @@ def main(argv=None) -> int:
             "steps_per_call_1": loop["epoch_img_per_s"],
             "steps_per_call_4": loop["epoch_img_per_s_steps_per_call_4"]}}}))
     log(json.dumps({"families": {"card": where, **families}}))
+    log(json.dumps({"dp": {"card": where, **dp}}))
     log(json.dumps({"experiment": {
         "card": where, **experiment,
         "raw_ucd_step_img_per_s": training["img_per_s"],
@@ -2630,6 +3036,7 @@ def main(argv=None) -> int:
         "launches_serving": serve_launches,
         "launches_train": counts["fused_argmax"],
         "launches_experiment": exp_counts["fused_argmax"],
+        "launches_dp": dp["launches"]["fused_argmax"],
         "max_abs_err": err["max_abs_err"],
         "mismatch_rate": err["mismatch_rate"],
         **timing}]
@@ -2648,6 +3055,8 @@ def main(argv=None) -> int:
             "launches_per_train_step":
                 trained["train_counts"][name] / trained["n_steps"],
             "launches_bundle": bundled["launches_bundle"][name],
+            "launches_dp": dp["launches"][name],
+            "launches_dp_bundle": dp["bundle"]["launches_bundle"][name],
             "max_abs_err": loss_err[err_key],
             "max_rel_grad_err": loss_err["grad_rel_err"],
             **t})
@@ -2669,6 +3078,8 @@ def main(argv=None) -> int:
             "launches_per_train_step":
                 trained["train_counts"][name] / trained["n_steps"],
             "launches_bundle": bundled["launches_bundle"][name],
+            "launches_dp": dp["launches"][name],
+            "launches_dp_bundle": dp["bundle"]["launches_bundle"][name],
             "max_abs_err": con_err[abs_key], "max_rel_err": con_err[rel_key],
             "mode": "bf16", **t["bf16"],
             **{f"{k}_f32": t["f32"][k] for k in (

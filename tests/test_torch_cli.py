@@ -72,15 +72,25 @@ def test_config_from_args_matches_jax(argv):
     (["--steps_per_call", "2"], "--steps_per_call"),
 ])
 def test_unported_flags_are_refused_by_name(tmp_path, extra, name):
-    """Each flag of a feature the port lacks is refused by name;
-    `--steps_per_call`, ported with the CUDA-graph bundle, is taken."""
+    """Each flag of a feature the port lacks (`--remat`, `--xla_options`)
+    is refused by name; `--steps_per_call`, ported with the CUDA-graph
+    bundle, and the multi-process launch flags, ported with data
+    parallelism (ucd_torch/parallel), are taken."""
     argv = ["train", "--synthetic", "4", "--device", "cpu",
             "--ckpt_dir", str(tmp_path / "ck"), "--logdir",
             str(tmp_path / "logs")] + extra
-    if name == "--steps_per_call":
+    if name not in ("--remat", "--xla_options"):
         args = TCLI.build_parser().parse_args(argv)
         TCLI.refuse_unported(args)
-        assert TCLI.config_from_args(args).steps_per_call == 2
+        if name == "--steps_per_call":
+            assert TCLI.config_from_args(args).steps_per_call == 2
+        else:
+            # parsed for maybe_initialize, which main() calls next
+            attr = name.lstrip("-")
+            want = {"--coordinator": "localhost:1234",
+                    "--num_processes": 2, "--process_id": 1,
+                    "--distributed": True}[name]
+            assert getattr(args, attr) == want
         return
     with pytest.raises(SystemExit, match=name):
         TCLI.main(argv)

@@ -28,7 +28,9 @@ What it implements:
     checkpoints (`engine.checkpoint`), the `engine.experiment.Experiment`
     loop, `engine.export.export_inference`, and the
     train / test / run-task / export / predict / serve command line
-    (`python -m ucd_torch.cli`).
+    (`python -m ucd_torch.cli`);
+  * data parallelism (`parallel`): N processes (NCCL on GPUs, gloo on the
+    CPU) compute the one-process step of the global batch.
 """
 
 from .device import resolve_device

@@ -19,11 +19,14 @@ same flags, plus `--device` on each:
     python -m ucd_torch.cli serve --model m.npz --port 8433 --warmup_size 512
 
 Everything runs on CUDA unless `--device cpu` is given. `--steps_per_call
-K` trains K steps a call through a CUDA graph. Flags of features that are
-not ported yet are parsed and refused by name when set: the multi-process
-launch (--coordinator, --num_processes, --process_id, --distributed;
-ROADMAP A6) and the JAX package's TPU execution options (--remat,
---xla_options).
+K` trains K steps a call through a CUDA graph. `train`, `test`,
+`run-task` and `export` run on N processes (one a GPU over NCCL, or CPU
+processes over gloo under `--device cpu`) with --coordinator,
+--num_processes and --process_id (or the UCD_TPU_COORDINATOR /
+UCD_TPU_NUM_PROCESSES / UCD_TPU_PROCESS_ID environment), or under
+torchrun with --distributed (ucd_torch/parallel/distributed.py);
+`--batch_size` is then the global batch. The JAX package's TPU execution
+options (--remat, --xla_options) are parsed and refused by name when set.
 """
 
 from __future__ import annotations
@@ -258,16 +261,16 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                         "(class->color + noise): exercises real retention/"
                         "forgetting dynamics across incremental steps "
                         "without the datasets")
-    # multi-process launch: parsed and refused until data parallelism is
-    # ported (ROADMAP A6)
+    # multi-process launch (ucd_torch/parallel/distributed.py)
     p.add_argument("--coordinator", default=None, metavar="HOST:PORT",
-                   help="rendezvous address of process 0 (refused: "
-                        "ROADMAP A6)")
+                   help="rendezvous address of process 0 (or a "
+                        "torch.distributed init URL, e.g. file:///path)")
     p.add_argument("--num_processes", type=int, default=None)
     p.add_argument("--process_id", type=int, default=None)
     p.add_argument("--distributed", action="store_true", default=False,
-                   help="auto-detect the multi-host topology (refused: "
-                        "ROADMAP A6)")
+                   help="read the topology from torchrun's environment "
+                        "(RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT, "
+                        "LOCAL_RANK)")
 
 
 def config_from_args(args: argparse.Namespace) -> Config:
@@ -354,6 +357,7 @@ def _make_bases(cfg: Config, n: int, learnable: int = 0):
 def _run_one_step(cfg: Config, profile_dir=None, synthetic: int = 0,
                   tta: bool = False, learnable: int = 0, device="cuda"):
     from .engine.experiment import Experiment
+    from .parallel import rank
     from .utils.reporting import write_step_csv
 
     base_train, base_val = _make_bases(cfg, synthetic, learnable)
@@ -368,33 +372,28 @@ def _run_one_step(cfg: Config, profile_dir=None, synthetic: int = 0,
             print(f"wrote {n} visualization panels to {out}")
     finally:
         exp.close()
-    csv_path = f"{cfg.logdir}/{cfg.task_name}/{cfg.name}/results.csv"
-    write_step_csv(csv_path, cfg.step, score["Class IoU"])
-    print(json.dumps({"step": cfg.step, "mean_iou": score["Mean IoU"]}))
+    if rank() == 0:
+        csv_path = f"{cfg.logdir}/{cfg.task_name}/{cfg.name}/results.csv"
+        write_step_csv(csv_path, cfg.step, score["Class IoU"])
+        print(json.dumps({"step": cfg.step, "mean_iou": score["Mean IoU"]}))
     return score
 
 
 
-# flags parsed for drop-in compatibility whose feature is not ported yet:
-# (flag, attribute, ROADMAP item); refused by name when set
-_REFUSED = (("--coordinator", "coordinator", "A6"),
-            ("--num_processes", "num_processes", "A6"),
-            ("--process_id", "process_id", "A6"),
-            ("--distributed", "distributed", "A6"),
-            ("--remat", "remat", "the JAX package only"),
+# flags parsed for drop-in compatibility whose feature the port does not
+# have: (flag, attribute, why); refused by name when set
+_REFUSED = (("--remat", "remat", "the JAX package only"),
             ("--xla_options", "xla_options", "the JAX package only"))
-_UNSET = {"coordinator": None, "num_processes": None, "process_id": None,
-          "distributed": False, "remat": False, "xla_options": ""}
+_UNSET = {"remat": False, "xla_options": ""}
 
 
 def refuse_unported(args: argparse.Namespace) -> None:
     """Raise SystemExit naming every set flag whose feature the port does
-    not have yet."""
-    bad = [f"{flag} ({'ROADMAP ' + item if item[0] == 'A' else item})"
-           for flag, attr, item in _REFUSED
+    not have."""
+    bad = [f"{flag} ({item})" for flag, attr, item in _REFUSED
            if getattr(args, attr) != _UNSET[attr]]
     if bad:
-        raise SystemExit("ucd_torch: not supported by the port yet: "
+        raise SystemExit("ucd_torch: not supported by the port: "
                          + ", ".join(bad))
 
 
@@ -433,6 +432,26 @@ def main(argv=None):
         return 0
 
     refuse_unported(args)
+    # before the first use of the device: joins the process group of a
+    # multi-process launch, a no-op otherwise
+    from .parallel import barrier, distributed, is_distributed
+    joined = not is_distributed() and distributed.maybe_initialize(
+        coordinator=args.coordinator, num_processes=args.num_processes,
+        process_id=args.process_id, auto=args.distributed,
+        device=args.device)
+    if not joined:
+        return _run(args)
+    args.device = str(distributed.process_device(args.device))
+    try:
+        rc = _run(args)
+        barrier()  # every process leaves the group together
+        return rc
+    finally:
+        distributed.shutdown()
+
+
+def _run(args: argparse.Namespace) -> int:
+    from .parallel import barrier, rank
     cfg = config_from_args(args)
 
     if args.command == "export":
@@ -442,10 +461,12 @@ def main(argv=None):
             raise SystemExit(
                 "export needs --ckpt (or --step_ckpt) naming the step "
                 "checkpoint to pack")
-        meta = export_inference(ckpt, args.out, cfg, args.export_dtype)
-        print(f"exported {meta['path']}: {meta['backbone']} "
-              f"os{meta['output_stride']} classes={meta['classes']} "
-              f"dtype={meta['dtype']}")
+        if rank() == 0:
+            meta = export_inference(ckpt, args.out, cfg, args.export_dtype)
+            print(f"exported {meta['path']}: {meta['backbone']} "
+                  f"os{meta['output_stride']} classes={meta['classes']} "
+                  f"dtype={meta['dtype']}")
+        barrier()
         return 0
 
     if args.command == "train":
@@ -470,6 +491,8 @@ def main(argv=None):
             _run_one_step(step_cfg, synthetic=args.synthetic,
                           learnable=args.synthetic_learnable,
                           device=args.device)
+        if rank() != 0:
+            return 0
         # the multi-step report
         from .utils.reporting import aggregate_csv, format_report
         csv_path = f"{cfg.logdir}/{cfg.task_name}/{cfg.name}/results.csv"

@@ -66,7 +66,11 @@ def load_or_compute_idxs(idxs_path: Optional[str], compute_fn):
     idxs = compute_fn()
     if idxs_path is not None:
         os.makedirs(os.path.dirname(idxs_path), exist_ok=True)
-        np.save(idxs_path, np.array(idxs, dtype=np.int64))
+        # write, then rename: the processes of a multi-process run compute
+        # the same file, and none may read another's half-written one
+        tmp = f"{idxs_path}.tmp{os.getpid()}.npy"
+        np.save(tmp, np.array(idxs, dtype=np.int64))
+        os.replace(tmp, idxs_path)
     return idxs
 
 

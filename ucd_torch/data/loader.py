@@ -8,9 +8,10 @@ to the device. Drop-last semantics for training. `prefetch > 0` overlaps the
 host's decode/augment with device work in a daemon thread; `workers > 1`
 loads the items of a batch in a thread pool (PIL releases the GIL). Each
 item draws from its own generator seeded by (seed, epoch, index), so the
-batches do not depend on the worker count. The port runs one process:
-`process_index` and `process_count` stay 0 and 1 until data parallelism is
-ported (ROADMAP A6)."""
+batches do not depend on the worker count. In a multi-process run
+(ucd_torch/parallel) the Experiment passes the process's rank and the
+group's size as `process_index` and `process_count`: every process draws
+the same permutation and takes its own `len // process_count` items."""
 
 from __future__ import annotations
 

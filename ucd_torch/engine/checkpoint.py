@@ -33,6 +33,7 @@ from typing import Any, Mapping, Optional
 import numpy as np
 import torch
 
+from .. import parallel as P
 from ..models.convert import flax_to_state_dict
 
 BRIDGE = "scripts/jax_ckpt_to_torch.py"
@@ -93,7 +94,21 @@ def save_checkpoint(path: str, state, epoch: int, best_score: float,
 
     With `async_write` the device->host copy happens now, and torch.save
     plus the disk write run on a background non-daemon thread: training
-    goes on during the write, and the interpreter waits for it at exit."""
+    goes on during the write, and the interpreter waits for it at exit.
+
+    Inside a process group (ucd_torch/parallel) every process holds the
+    same state: process 0 writes, and every process then waits at a
+    barrier (for an async write, until it is issued; `wait_pending` and a
+    barrier wait for it). The JAX package's orbax save is entered by every
+    process instead."""
+    if P.rank() == 0:
+        _save(path, state, epoch, best_score, reg_saved, reg_full,
+              async_write)
+    P.barrier()
+
+
+def _save(path, state, epoch, best_score, reg_saved, reg_full,
+          async_write) -> None:
     path = os.path.abspath(path)
     payload = {
         "epoch": int(epoch),
@@ -188,10 +203,11 @@ def restore_into(template, raw) -> None:
 
 
 def load_checkpoint(path: str) -> Optional[dict]:
-    """The checkpoint at `path`, or None if there is none. A directory is
-    an orbax checkpoint of the JAX package: it raises, naming the bridge
-    that converts it (returning None would let a step train without its
-    donor)."""
+    """The checkpoint at `path` (its tensors on the CPU; `restore_into`,
+    `restore_like` and `build_train_state` move them to each process's
+    device), or None if there is none. A directory is an orbax checkpoint
+    of the JAX package: it raises, naming the bridge that converts it
+    (returning None would let a step train without its donor)."""
     wait_pending()  # a restore must see the completed in-flight write
     path = os.path.abspath(path)
     if not os.path.exists(path):

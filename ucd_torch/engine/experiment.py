@@ -6,14 +6,18 @@ datasets -> model + frozen donor (restored from the previous step's
 checkpoint) -> optimizer and schedule -> epoch loop (train, validate,
 save) -> final test on every class seen so far.
 
-The port runs one process on one device (CUDA unless the caller passes
-`device="cpu"`; it never moves to the CPU on its own). What the JAX class
-does for a mesh (sharding, per-host batch assembly) and for XLA (the
-compile cache) has no counterpart here; multi-process runs wait for
-ROADMAP A6. `steps_per_call > 1` trains K full batches a call through
-`make_train_bundle` (a CUDA graph on the card), as the JAX class scans
-them. The regularizer's state (EWC / PI / RW) crosses incremental steps
-through the checkpoint and a same-step resume restores it bit for bit.
+Each process runs on one device (CUDA unless the caller passes
+`device="cpu"`; it never moves to the CPU on its own). Inside a process
+group (ucd_torch/parallel) each process loads its contiguous shard of
+every epoch's permutation, `cfg.batch_size` is the global batch, and the
+steps reduce over the group (engine/train.py), as the JAX class's global
+arrays do; process 0 alone writes checkpoints, logs and image dumps, and
+every process waits for the write at a barrier. What the JAX class does
+for XLA (the compile cache) has no counterpart here. `steps_per_call > 1`
+trains K full batches a call through `make_train_bundle` (a CUDA graph on
+the card), as the JAX class scans them. The regularizer's state (EWC / PI
+/ RW) crosses incremental steps through the checkpoint and a same-step
+resume restores it bit for bit.
 `profile_dir` traces the first epoch with torch.profiler.
 
 The train loop keeps the step's metrics on the device and fetches them
@@ -31,6 +35,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import parallel as P
 from .. import tasks as task_registry
 from ..config import Config
 from ..data import DataLoader, make_incremental_dataset, split_train_val
@@ -152,22 +157,34 @@ class Experiment:
         cfg.validate()
         self.cfg = cfg
         self.device = resolve_device(device)
-        self.local_batch = cfg.batch_size
+        # the data axis over the process group (one process without one);
+        # an indivisible global batch raises here
+        self.mesh = P.make_mesh_multiprocess(cfg.batch_size)
+        if self.mesh.size > 1 and not cfg.crop_val and not cfg.test_only:
+            # full-size eval feeds per-image shapes, which differ between
+            # the processes' shards of one global batch
+            raise ValueError(
+                "crop_val=False (full-size eval) is not supported in "
+                "multi-process runs: per-host images have different "
+                "shapes and cannot assemble one global batch. Use "
+                "--crop_val, or eval single-process.")
+        # per-process share of the global batch (the reference's per-GPU
+        # batch)
+        self.local_batch = P.local_batch_size(cfg.batch_size)
 
         logdir = f"{cfg.logdir}/{cfg.task_name}/{cfg.name}"
-        self.logger = logger or Logger(logdir, rank=0, debug=cfg.debug,
-                                       step=cfg.step, summary=cfg.visualize,
+        self.logger = logger or Logger(logdir, rank=self.mesh.rank,
+                                       debug=cfg.debug, step=cfg.step,
+                                       summary=cfg.visualize,
                                        use_wandb=cfg.wandb)
 
         self.train_dst, self.val_dst, self.test_dst, _ = get_datasets(
             cfg, base_train, base_val)
-        self.train_loader = DataLoader(self.train_dst, self.local_batch,
-                                       seed=cfg.random_seed,
-                                       workers=cfg.num_workers)
-        self.val_loader = DataLoader(
+        self.train_loader = self._loader(self.train_dst, self.local_batch,
+                                         workers=cfg.num_workers)
+        self.val_loader = self._loader(
             self.val_dst, self.local_batch if cfg.crop_val else 1,
-            shuffle=False, drop_last=False, seed=cfg.random_seed,
-            workers=cfg.num_workers)
+            shuffle=False, drop_last=False, workers=cfg.num_workers)
         if not cfg.test_only and len(self.train_loader) == 0:
             raise ValueError(
                 f"train loader is empty ({len(self.train_dst)} filtered "
@@ -273,6 +290,12 @@ class Experiment:
                 self.best_score = float(ck["best_score"])
                 self.logger.info(f"[!] Model restored from {resume_path}")
 
+    def _loader(self, dataset, batch_size: int, **kw) -> DataLoader:
+        """A loader over this process's shard of `dataset`."""
+        return DataLoader(dataset, batch_size, seed=self.cfg.random_seed,
+                          process_index=self.mesh.rank,
+                          process_count=self.mesh.size, **kw)
+
     # ------------------------------------------------------------------
     def train_epoch(self, epoch: int) -> dict:
         """One pass over the train loader. Returns the epoch's mean of each
@@ -357,6 +380,11 @@ class Experiment:
         # sample panels for the image log: seeded-random ids over the val
         # set (not the stream head, which shows the same images each epoch)
         want = cfg.sample_num if cfg.visualize else 0
+        if want > 0 and self.mesh.size > 1:
+            # each process sees its shard only: sample panels are a
+            # one-process observability feature, as in the JAX class
+            self.logger.info("sample logging disabled in multi-process runs")
+            want = 0
         sample_ids: set = set()
         if want > 0:
             srng = np.random.default_rng(cfg.random_seed)
@@ -387,10 +415,16 @@ class Experiment:
                 sums[k] = sums.get(k, 0.0) + v
         self.last_val_samples = samples
         self.last_confusion = hist.cpu().numpy()
+        # the eval step summed the counts over the group; make the sample
+        # count global too
+        seen = int(P.all_reduce_sum_(
+            torch.tensor([seen], dtype=torch.int64, device=self.device)))
         res = results_from_confusion(self.last_confusion, total_samples=seen)
         return {k: v / max(n, 1) for k, v in sums.items()}, res
 
     def save(self, epoch: int, score: float):
+        """Process 0 writes the checkpoint, the others wait at a barrier
+        (`save_checkpoint`); an async write is waited for at `close`."""
         cfg = self.cfg
         reg = self.state.reg_state
         ckpt_lib.save_checkpoint(
@@ -406,7 +440,7 @@ class Experiment:
         while self.cur_epoch < cfg.epochs and not cfg.test_only:
             epoch = self.cur_epoch
             if profile_dir and epoch == 0:
-                with _profiler(profile_dir, self.device):
+                with _profiler(profile_dir, self.device, self.mesh):
                     m = self.train_epoch(epoch)
             else:
                 m = self.train_epoch(epoch)
@@ -464,13 +498,16 @@ class Experiment:
     def visualize(self, out_dir: str, max_images: int = 16) -> int:
         """Dump per-image (input | GT | prediction) panels, body-attention
         maps, the raw-id and colorized prediction and target, and the RGB
-        input. Returns the number of images written."""
+        input, from process 0. Returns the number of images written."""
         from PIL import Image
 
         from ..ops import fused_eval as FE
         from ..utils.viz import (Denormalize, Label2Color, attention_map,
                                  color_map)
 
+        if self.mesh.rank != 0:
+            # every process would write the same files
+            return 0
         os.makedirs(out_dir, exist_ok=True)
         cfg = self.cfg
         l2c = Label2Color(color_map(cfg.dataset))
@@ -522,14 +559,18 @@ class Experiment:
 
     def close(self):
         """Release the loaders' worker pools and wait for an in-flight
-        checkpoint write (re-raising its error)."""
+        checkpoint write (re-raising its error); inside a process group
+        every process waits for process 0's write."""
         self.train_loader.close()
         self.val_loader.close()
         ckpt_lib.wait_pending()
+        P.barrier()
 
     def predict_test(self) -> dict:
         """Test-time-augmented eval through engine.predictor.Predictor:
-        multi-scale / flipped views fused by `cfg.fusion_mode`."""
+        multi-scale / flipped views fused by `cfg.fusion_mode`. Every
+        process tests the whole set (eval mode: no collectives), as in the
+        JAX class."""
         from .metrics import confusion_matrix_update
         from .predictor import Predictor
         cfg = self.cfg
@@ -555,13 +596,12 @@ class Experiment:
     def final_test(self) -> dict:
         """Test on all seen classes."""
         cfg = self.cfg
-        test_loader = DataLoader(self.test_dst,
-                                 self.local_batch if cfg.crop_val else 1,
-                                 shuffle=False, drop_last=False,
-                                 seed=cfg.random_seed)
+        test_loader = self._loader(self.test_dst,
+                                   self.local_batch if cfg.crop_val else 1,
+                                   shuffle=False, drop_last=False)
         losses, score = self.validate(test_loader)
         self.logger.info(results_to_str(score))
-        if cfg.visualize:
+        if cfg.visualize and self.mesh.rank == 0:
             self._save_confusion_figure()
         self.logger.add_scalar("T_Overall_Acc", score["Overall Acc"],
                                cfg.step)
@@ -593,8 +633,9 @@ def _resize_argmax(sem: torch.Tensor, hw) -> torch.Tensor:
 
 
 @contextlib.contextmanager
-def _profiler(out_dir: str, device: torch.device):
-    """torch.profiler over a block; the chrome trace goes to `out_dir`."""
+def _profiler(out_dir: str, device: torch.device, mesh):
+    """torch.profiler over a block; the chrome trace goes to `out_dir`
+    (one file a process in a multi-process run)."""
     from torch.profiler import ProfilerActivity, profile
     acts = [ProfilerActivity.CPU]
     if device.type == "cuda":
@@ -602,4 +643,6 @@ def _profiler(out_dir: str, device: torch.device):
     with profile(activities=acts) as prof:
         yield prof
     os.makedirs(out_dir, exist_ok=True)
-    prof.export_chrome_trace(os.path.join(out_dir, "train_epoch0.json"))
+    name = "train_epoch0.json" if mesh.size == 1 \
+        else f"train_epoch0_rank{mesh.rank}.json"
+    prof.export_chrome_trace(os.path.join(out_dir, name))

@@ -8,7 +8,8 @@ Counterpart of ucd_tpu/engine/state.py:
     the frozen donor's variables;
   * fresh optimizer state and, under a regularizer, its state from the
     previous step's export; step 0. Every counter is a tensor on the
-    device (engine/train.py).
+    device (engine/train.py);
+  * inside a process group, every process's state is process 0's.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from typing import Dict, Mapping, Optional
 
 import torch
 
+from .. import parallel as P
 from ..config import Config
 from ..device import resolve_device
 from ..models.segmentation import init_new_classifier, merge_old_params
@@ -90,4 +92,9 @@ def build_train_state(cfg: Config, model, generator: torch.Generator,
     state = TrainState(model=model, opt_state=tx.init(params),
                        reg_state=reg_state,
                        step=torch.zeros((), dtype=torch.int64, device=dev))
+    # inside a process group every process holds the same state, as the
+    # JAX state is replicated: process 0's, whatever each process drew
+    P.broadcast_([*model.parameters(), *model.buffers(),
+                  *R.state_tensors(reg_state),
+                  *(old_vars.values() if old_vars is not None else ())])
     return state, old_vars

@@ -43,6 +43,7 @@ from typing import Any, Callable, Dict, Mapping, Optional
 import torch
 from torch.func import functional_call
 
+from .. import parallel as P
 from ..config import Config, unsupported_fields
 from ..device import resolve_device
 from ..models.layers import wide_dtype
@@ -396,7 +397,21 @@ def _make_core(cfg: Config, model, model_old, total_iters: int,
         mark("backward")
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
-        metrics = {k: v.detach() for k, v in terms.items()}
+        # inside a process group: the global batch's gradient, before the
+        # regularizer's accumulators read it (the JAX step's EWC/PI/RW see
+        # the global gradient) and before nan_guard's finite test (every
+        # process then decides alike)
+        if P.is_distributed():
+            P.all_reduce_mean_(list(grads.values()))
+            mark("all_reduce")
+        # the global batch's loss terms: every per-pixel mean divides by
+        # all the pixels, as many on each process, so the mean of the
+        # processes' means is the global mean (no normalization on the
+        # train path counts valid pixels: BCE is "mean_all"); `l_con` is
+        # already the global batch's on every process
+        metrics = P.reduce_metrics(
+            {k: v.detach() for k, v in terms.items()},
+            [k for k in terms if k != "l_con"])
         metrics["l_reg"] = torch.zeros_like(metrics["loss_tot"])
         if state.reg_state is not None:
             # accumulators from the main loss's gradients, then the
@@ -436,8 +451,16 @@ def make_train_step(cfg: Config, model, model_old, total_iters: int,
 
     `mark(name)`, if given, is called at the start of the step and after
     each of its parts ("start", "upload", "donor_forward", "forward",
-    "losses", "backward", "optimizer"), for a caller that times the parts
-    (a CUDA event per call)."""
+    "losses", "backward", inside a process group "all_reduce", then
+    "optimizer"), for a caller that times the parts (a CUDA event per
+    call).
+
+    Inside a process group (ucd_torch/parallel) `batch` is this process's
+    shard of the global batch, and the step computes what the one-process
+    step computes on the global batch, up to reduction order: train-mode
+    BatchNorm statistics, the contrastive term, the gradient and the loss
+    metrics are the global batch's, and every process applies the same
+    update."""
     dev = _step_device(device, model, model_old)
     mark = mark or _no_mark
     core = _make_core(cfg, model, model_old, total_iters, step_idx)
@@ -535,18 +558,33 @@ def make_train_bundle(cfg: Config, model, model_old, total_iters: int,
     kernels upload once), then captures one step in a CUDA graph over
     static input buffers, and every later slot copies its batch into them
     and replays the graph: one host dispatch per step instead of some
-    thousands. A failed capture raises. The graph reads the state where it
-    was at the capture, so state tensors must be updated in place
-    (`load_state_dict`, `copy_`), never rebound: the bundle raises if they
-    were. Eager steps between calls are fine. On the CPU it runs the step
+    thousands. Inside a process group the graph holds the step's NCCL
+    collectives (the communicator exists from `init_group` on, and slot
+    0 has run each collective eagerly). A failed capture raises. The graph
+    reads the state where it was at the capture, so state tensors must be
+    updated in place (`load_state_dict`, `copy_`), never rebound: the
+    bundle raises if they were. Eager steps between calls are fine. On the CPU it runs the step
     K times. `fn.capture` holds the capture (its `capture_s`, launches per
     replay) once made."""
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     dev = _step_device(device, model, model_old)
-    core = _make_core(cfg, model, model_old, total_iters, step_idx)
+    return _Bundle(_make_core(cfg, model, model_old, total_iters, step_idx),
+                   dev, k)
 
-    def train_bundle(state: TrainState, batches, old_vars=None):
+
+class _Bundle:
+    """`make_train_bundle`'s callable. An object, not a closure: a closure
+    that names itself would keep its captured graph alive until a garbage
+    collection, and a graph holding NCCL collectives must be gone before
+    the process group is."""
+
+    def __init__(self, core, dev, k):
+        self.core, self.dev, self.k = core, dev, k
+        self.capture = None
+
+    def __call__(self, state: TrainState, batches, old_vars=None):
+        core, dev, k = self.core, self.dev, self.k
         images = torch.as_tensor(batches["image"]).to(dev)
         labels = torch.as_tensor(batches["label"]).to(dev)
         if images.shape[0] != k or labels.shape[0] != k:
@@ -559,7 +597,7 @@ def make_train_bundle(cfg: Config, model, model_old, total_iters: int,
                 rows.append(core(state, images[i].permute(0, 3, 1, 2),
                                  labels[i], old_vars, _no_mark))
             return state, _stack_rows(rows)
-        cap = train_bundle.capture
+        cap = self.capture
         if cap is None:
             # slot 0 is a real step of the trajectory, run eagerly on the
             # stream the capture then uses
@@ -569,7 +607,7 @@ def make_train_bundle(cfg: Config, model, model_old, total_iters: int,
                 rows.append(core(state, images[0].permute(0, 3, 1, 2),
                                  labels[0], old_vars, _no_mark))
             torch.cuda.current_stream(dev).wait_stream(stream)
-            cap = train_bundle.capture = _Capture(
+            cap = self.capture = _Capture(
                 core, state, images[0], labels[0], old_vars, stream)
             start = 1
         elif tuple(cap.image.shape) != tuple(images.shape[1:]) \
@@ -584,9 +622,6 @@ def make_train_bundle(cfg: Config, model, model_old, total_iters: int,
             rows.append(cap.replay(state, images[i], labels[i], old_vars))
         return state, _stack_rows(rows)
 
-    train_bundle.capture = None
-    return train_bundle
-
 
 def make_eval_step(cfg: Config, model, model_old=None, device=None):
     """Validate step: criterion loss + distillation terms for logging,
@@ -595,7 +630,9 @@ def make_eval_step(cfg: Config, model, model_old=None, device=None):
 
     Returns fn(variables, batch, hist, old_vars=None) ->
     (hist, {"loss", "lkd", "lde"}, preds). `variables` is a state_dict to
-    evaluate `model` on, or None for the model's own tensors."""
+    evaluate `model` on, or None for the model's own tensors. Inside a
+    process group `batch` is this process's shard: the confusion counts
+    and the losses are the global batch's (`preds` this process's)."""
     _check_cfg(cfg)
     dev = _step_device(device, model, model_old)
     has_old = model_old is not None
@@ -654,8 +691,12 @@ def make_eval_step(cfg: Config, model, model_old=None, device=None):
                 lkd = _dense_kd(cfg, outputs, outputs_old)  # logging only
             preds = outputs.argmax(dim=-1).to(torch.int32)
 
-        hist = confusion_matrix_update(hist, labels, preds, n_classes)
-        return hist, {"loss": loss, "lkd": lkd, "lde": lde}, preds
+        # inside a process group, the global batch's counts and losses
+        hist = confusion_matrix_update(hist, labels, preds, n_classes,
+                                       all_ranks=P.is_distributed())
+        losses = P.reduce_metrics({"loss": loss, "lkd": lkd, "lde": lde},
+                                  ("loss", "lkd", "lde"))
+        return hist, losses, preds
 
     return eval_step
 

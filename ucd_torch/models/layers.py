@@ -26,6 +26,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.collectives import (all_gather_rows, all_reduce_sum_,
+                                   is_distributed)
+
 
 def leaky_relu_gain(negative_slope: float) -> float:
     """torch.nn.init.calculate_gain('leaky_relu', slope)."""
@@ -68,9 +71,105 @@ def wide_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
+class _SyncBatchNorm(torch.autograd.Function):
+    """Train-mode batch norm over the global batch of a process group.
+
+    Forward: each process's per-channel (count, mean, M2 = count * biased
+    variance), all-gathered and combined with Chan's formula (M2 = sum M2_p
+    + sum n_p (mean_p - mean)^2; never E[x^2] - E[x]^2), then x normalized
+    with those global statistics. Backward: this process's per-channel
+    sums of dy and dy * (x - mean), all-reduced, and dx from the global
+    sums,
+
+        dx = weight * invstd * (dy - mean(dy) - x_hat * mean(dy * x_hat));
+
+    the weight and bias gradients stay this process's sums (the step's
+    gradient all-reduce averages them). The collectives and the combine
+    are one code path on gloo and NCCL; the per-process passes are torch's
+    fused SyncBatchNorm kernels on CUDA (`batch_norm_stats`, `_elemt`,
+    `_backward_reduce`, `_backward_elemt`: CUDA only, about a fifth of the
+    device time of the generic ops there) and the generic ops elsewhere
+    (`var_mean`, the normalize, the inference-mode BatchNorm backward plus
+    the global sums' term). Returns (y, mean, biased variance) for the
+    running statistics."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        c = x.shape[1]
+        if not (x.is_contiguous()
+                or x.is_contiguous(memory_format=torch.channels_last)):
+            x = x.contiguous()
+        if x.is_cuda:
+            mean, invstd = torch.batch_norm_stats(x, 0.0)
+            # the biased variance (the kernel's invstd is 0 for a constant
+            # channel)
+            var = torch.where(invstd > 0, invstd.pow(-2), 0.0)
+        else:
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+        n = x.new_full((1,), x.numel() // c)
+        stats = all_gather_rows(torch.cat([n, mean, var * n])[None])
+        counts, means, m2 = stats[:, :1], stats[:, 1:c + 1], stats[:, c + 1:]
+        total = counts.sum()
+        mean = (counts * means).sum(0) / total
+        var = (m2.sum(0) + (counts * (means - mean) ** 2).sum(0)) / total
+        invstd = torch.rsqrt(var + eps)
+        shape = (1, c, 1, 1)
+        if x.is_cuda:
+            y = torch.batch_norm_elemt(x, weight, bias, mean, invstd, eps)
+        else:
+            # (x - mean) first: x * scale + shift would cancel where the
+            # variance is small beside the mean
+            y = torch.addcmul(bias.view(shape), x - mean.view(shape),
+                              (invstd * weight).view(shape))
+        ctx.save_for_backward(x, weight, mean, var, invstd,
+                              counts.to(torch.int32).view(-1))
+        ctx.eps = eps
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _dmean, _dvar):
+        x, weight, mean, var, invstd, counts = ctx.saved_tensors
+        c = x.shape[1]
+        dw, db = ctx.needs_input_grad[1:3]
+        if not (dy.is_contiguous()
+                or dy.is_contiguous(memory_format=torch.channels_last)):
+            dy = dy.contiguous()
+        if x.is_cuda:
+            sum_dy, sum_dy_xmu, grad_w, grad_b = \
+                torch.batch_norm_backward_reduce(dy, x, mean, invstd, weight,
+                                                 True, dw, db)
+            both = all_reduce_sum_(torch.cat([sum_dy, sum_dy_xmu]))
+            dx = torch.batch_norm_backward_elemt(
+                dy, x, mean, invstd, weight, both[:c], both[c:], counts)
+            return dx, grad_w, grad_b, None
+        # inference mode: the statistics are constants here (CUDA's kernel
+        # asks for them twice, as running and as saved statistics)
+        dx, grad_w, grad_b = torch.ops.aten.native_batch_norm_backward(
+            dy, x, weight, mean, var, mean, invstd, False, ctx.eps,
+            [True, True, True])
+        both = all_reduce_sum_(torch.cat([grad_b, grad_w]))
+        total = counts.sum().to(x.dtype)
+        scale = weight * invstd
+        # dx - scale * (mean(dy) + x_hat * mean(dy * x_hat))
+        a = -scale * invstd * both[c:] / total
+        b = -scale * both[:c] / total
+        shape = (1, c, 1, 1)
+        dx = dx.addcmul_(x - mean.view(shape), a.view(shape)).add_(
+            b.view(shape))
+        return dx, grad_w if dw else None, grad_b if db else None, None
+
+
 class BatchNorm2d(nn.BatchNorm2d):
     """nn.BatchNorm2d whose train-mode running variance takes the biased
-    batch variance, as flax's BatchNorm does."""
+    batch variance, as flax's BatchNorm does.
+
+    Inside a process group (ucd_torch/parallel; any size, one included)
+    the train-mode statistics are the global batch's, combined across the
+    processes by `_SyncBatchNorm`, as the JAX program's are (it is one
+    program over the global batch). torch's SyncBatchNorm is not used: it
+    runs on CUDA only and its running variance is the unbiased one. Eval
+    mode (the frozen donor, `fix_bn`) never synchronizes."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
@@ -79,6 +178,13 @@ class BatchNorm2d(nn.BatchNorm2d):
         self.num_batches_tracked.add_(1)
         factor = self.momentum if self.momentum is not None \
             else 1.0 / float(self.num_batches_tracked)
+        if is_distributed():
+            y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias,
+                                                self.eps)
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, factor)
+                self.running_var.lerp_(var, factor)
+            return y
         # the batch's mean and unbiased variance land in scratch buffers
         # (momentum 1); the running statistics then take the mean and the
         # *biased* variance, as flax's do

@@ -34,6 +34,7 @@ from typing import NamedTuple, Optional, Tuple
 import torch
 
 from ..models.layers import wide_dtype
+from ..parallel.collectives import gather_rows, is_distributed
 
 INT32_MAX = 2 ** 31 - 1
 
@@ -252,7 +253,9 @@ def ucd_contrastive_loss(f_n, labels, l_po, f_o, max_label: int,
                          bug_compatible: bool = False,
                          kernel_dtype: Optional[torch.dtype] = None
                          ) -> torch.Tensor:
-    """End-to-end UCD contrastive term: build batch -> (compact) -> loss.
+    """End-to-end UCD contrastive term: build batch -> (compact) -> loss,
+    over the global batch inside a process group (every process computes
+    the same term; the gradient of `f_n` is this process's rows).
     `use_pallas` selects the streaming tiled kernels
     (ops/tiled_contrastive.py; `kernel_dtype` float32 or bfloat16 is their
     compute mode), else the dense loss. `bug_compatible` reproduces the
@@ -265,6 +268,14 @@ def ucd_contrastive_loss(f_n, labels, l_po, f_o, max_label: int,
             " the streaming kernels cannot reproduce the reference's"
             " UNstabilized negative sum. Pass"
             " use_pallas_contrastive=False for bug-compatible runs.")
+    if is_distributed():
+        # the JAX term is one program over the global batch (a pallas_call
+        # has no partitioning rule): min_new, the self-pair column and the
+        # compaction order are the global batch's. Every process gathers
+        # the four inputs in rank order and computes the same term.
+        f_n = gather_rows(f_n)
+        labels, l_po, f_o = (gather_rows(t.detach())
+                             for t in (labels, l_po, f_o))
     batch = build_contrastive_batch(f_n, labels, l_po, f_o, max_label)
     batch = compact_batch(batch, capacity)
     if use_pallas:
