@@ -78,6 +78,23 @@ Phases (any failure exits non-zero, and no result line is printed):
         inside the captured graph, bit for bit; img/s eager and captured, capture
         seconds, NCCL device time and the model's train-mode forward +
         backward outside the group, inside it and outside it again;
+     g. (run after 3f) the host ops' C++ build on this host
+        (ucd_torch/data/native.py, g++ at first use) held against the
+        numpy/PIL versions at VOC's shapes (375x500 sources, 512x512
+        crops, flips: geometry exact, normalize within 1e-6), its host
+        time a batch against theirs, and PERF.md's experiment loop at
+        steps_per_call 4 with and without it; then, with the launch counts
+        set to 0 just before and read just after, one full-width UCD step
+        from 3b's variables under each execution option (remat,
+        remat_early, stem_s2d, bf16_norm, bf16_norm_early) beside the
+        plain step (remat's with the plain step's bits under deterministic
+        algorithms; the others within 3b's bf16 bound or twice a
+        rounding-only change, cuDNN off), a validate step each, peak
+        memory and img/s eager and captured (K 4), 12 captured remat steps
+        bit for bit against 12 eager ones, the stem_s2d model exported and
+        served; GroupNorm ABN and the off-path modules (v1 contrastive
+        losses, Sinkhorn-Knopp, the non-local block) on the card against
+        the CPU;
   4. time each kernel three ways (its own device time from a
      torch.profiler window, CUDA events around the wrapper calls, the
      host's enqueue time a call) beside its plain version, one library
@@ -95,24 +112,29 @@ Phases (any failure exits non-zero, and no result line is printed):
 After phase 4 come `{"serving": ...}`, `{"training": ...}`, `{"bundle":
 ...}` (phase 3d's verdict and launches, the eager-vs-captured timing, the
 failing capture, the loop at steps_per_call 1 and 4), `{"families": ...}`,
-`{"dp": ...}` (phase 3f) and `{"experiment": ...}` (phase 3c's seconds per
+`{"dp": ...}` (phase 3f), `{"experiment": ...}` (phase 3c's seconds per
 step, epoch img/s, loader
 and checkpoint times, launches and peak memory, beside phase 4's raw UCD
-step img/s). The last three lines of stdout are the `{"kernels": [...]}` record
+step img/s) and `{"options": ...}` (phase 3g). The last three lines of
+stdout are the `{"kernels": [...]}` record
 (each row's `ms` / `kernel_ms` the device time, `wrapper_ms` the events',
-`launches_experiment` its launches in phase 3c), the
+`launches_experiment` its launches in phase 3c, `launches_options` in
+3g's option steps), the
 card's name and power limit (nvidia-smi), and `{"ok": true, "device": ...}`.
 `--profile DIR` also writes torch.profiler tables of predict_labels and of
 the train step there. `--only kernels` stops after phase 2, `--only dp`
-runs phases 1, 3b and 3f; neither prints a result (for bringing a kernel
-or the data-parallel path up).
+runs phases 1, 3b and 3f, `--only options` phases 1, 3b and 3g; none
+prints a result (for bringing a kernel, the data-parallel path or the
+options up).
 """
 
 from __future__ import annotations
 
 import argparse
 import contextlib
+import copy
 import dataclasses
+import gc
 import importlib.util
 import io
 import json
@@ -2311,6 +2333,454 @@ def phase_experiment(dev, where) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3g: the host ops' binding, the model's execution options, GroupNorm
+# ABN and the off-path modules
+# ---------------------------------------------------------------------------
+
+VOC_HW = (375, 500)      # VOC's most common source size
+HOST_BATCHES = 4         # timed batches a side, taken in turns
+OPTIONS = ("remat", "remat_early", "stem_s2d", "bf16_norm",
+           "bf16_norm_early")
+OPTION_STEPS = 12        # captured remat steps held against eager ones
+A10_TOL = 1e-4           # card (true f32) against the CPU, of max|ref|
+
+
+@contextlib.contextmanager
+def host_ops(native: bool):
+    """The data pipeline's host ops through the C++ build (`native`) or
+    their numpy/PIL versions, within a block."""
+    from ucd_torch.data import native as N
+    saved = N._LIB
+    if not native:
+        N._LIB = False
+    try:
+        yield
+    finally:
+        N._LIB = saved
+
+
+def check_host_ops() -> dict:
+    """The C++ build against the numpy/PIL versions at VOC's shapes: 375x500
+    sources, random crops resized to 512x512 with and without the flip,
+    whole-image resizes (geometry exact), the normalize (within 1e-6: one
+    FMA a value against (x / 255 - mean) / std), the remap into int32 and
+    the confusion update (exact)."""
+    from ucd_torch.data import native as N
+    from ucd_torch.data import transforms as DT
+
+    prebuilt = N.library_path().exists()
+    t0 = time.perf_counter()
+    assert N.has_native(), "the host ops did not build"
+    build_s = time.perf_counter() - t0
+    rs = np.random.RandomState(7)
+    n_geo = 0
+    for i in range(8):
+        img = make_images(1, *VOC_HW, seed=200 + i)[0]
+        lbl = make_labels(1, *VOC_HW, 21, seed=300 + i)[0]
+        ch, cw = rs.randint(100, VOC_HW[0] + 1), rs.randint(100,
+                                                             VOC_HW[1] + 1)
+        crops = [(rs.randint(0, VOC_HW[0] - ch + 1),
+                  rs.randint(0, VOC_HW[1] - cw + 1), ch, cw), None]
+        for crop in crops:
+            for flip in (False, True):
+                got = N.pil_resize_pair(img, lbl, SIZE, SIZE, crop, flip)
+                with host_ops(False):
+                    want = N.pil_resize_pair(img, lbl, SIZE, SIZE, crop,
+                                             flip)
+                for g, w in zip(got, want):
+                    assert g.shape == w.shape and np.array_equal(g, w), (
+                        i, crop, flip)
+                n_geo += 1
+        got = N.normalize_image(img, DT.IMAGENET_MEAN, DT.IMAGENET_STD)
+        with host_ops(False):
+            want = N.normalize_image(img, DT.IMAGENET_MEAN, DT.IMAGENET_STD)
+        norm_err = float(np.abs(got - want).max())
+        assert norm_err <= 1e-6, norm_err
+    lut = np.arange(256, dtype=np.int32)
+    lut[3] = 300
+    got = N.remap_labels(lbl, lut)
+    with host_ops(False):
+        assert np.array_equal(got, N.remap_labels(lbl, lut))
+    pred = rs.randint(0, 21, lbl.shape)
+    hist = N.confusion_update(np.zeros((21, 21), np.int64), lbl, pred)
+    with host_ops(False):
+        assert np.array_equal(hist, N.confusion_update(
+            np.zeros((21, 21), np.int64), lbl, pred))
+    return {"build_s": build_s, "prebuilt": prebuilt,
+            "geometry_cases": n_geo,
+            "normalize_max_abs_diff": norm_err}
+
+
+def time_host_ops() -> dict:
+    """The train pipeline's host work a batch (8 VOC-sized sources -> random
+    resized 512x512 crops with the flip, then the uint8 pass-through of
+    device normalize, or the host normalize), through the C++ build and
+    through the numpy/PIL versions, batches taken in turns."""
+    from ucd_torch.data import transforms as DT
+
+    srcs = [(make_images(1, *VOC_HW, seed=400 + i)[0],
+             make_labels(1, *VOC_HW, 21, seed=500 + i)[0])
+            for i in range(BATCH)]
+    out = {}
+    for device_normalize in (True, False):
+        tf = DT.train_transform(SIZE, device_normalize)
+        ms = {True: [], False: []}
+        for b in range(HOST_BATCHES):
+            for native in (True, False):
+                rng = np.random.default_rng(b)
+                with host_ops(native):
+                    t0 = time.perf_counter()
+                    for img, lbl in srcs:
+                        tf(img, lbl, rng)
+                    ms[native].append((time.perf_counter() - t0) * 1e3)
+        key = "device_normalize" if device_normalize else "host_normalize"
+        out[key] = {"native_ms_per_batch": ms[True],
+                    "numpy_pil_ms_per_batch": ms[False]}
+    return out
+
+
+def time_loop_native(dev) -> dict:
+    """PERF.md's experiment loop at steps_per_call 4 (a step-1 UCD
+    `Experiment`, VOC 15-5, ResNet-101, batch 8, 512x512, bf16, 64
+    synthetic images, three epochs of 8 iterations; its first epoch
+    captures) with the host ops through the C++ build and through
+    numpy/PIL, epochs taken in turns: img/s and the wait for the loader."""
+    from ucd_torch.data import SyntheticSegmentation
+    from ucd_torch.engine.experiment import Experiment
+
+    with tempfile.TemporaryDirectory() as tmp:
+        kw = dict(dataset="voc", task="15-5", backbone=TRAIN["backbone"],
+                  crop_size=SIZE, batch_size=BATCH, lr=0.001, epochs=3,
+                  pretrained=False, visualize=False, print_interval=1000,
+                  logdir=os.path.join(tmp, "logs"),
+                  ckpt_dir=os.path.join(tmp, "ckpt"))
+        base0 = SyntheticSegmentation(n=BATCH, size=SIZE, n_classes=16,
+                                      seed=1)
+        exp0 = Experiment(C.make_config(step=0, method="FT", **kw),
+                          base_train=base0, base_val=base0, device=dev)
+        exp0.save(0, 0.0)
+        exp0.close()
+        del exp0
+        base1 = SyntheticSegmentation(n=8 * BATCH, size=SIZE, n_classes=21,
+                                      seed=2)
+        cfg = C.make_config(step=1, method="UCD", steps_per_call=4, **kw)
+        exps = {n: Experiment(cfg, base_train=base1, base_val=base1,
+                              device=dev) for n in (True, False)}
+        epochs = {True: [], False: []}
+        for e in range(3):
+            for native in (True, False):
+                with host_ops(native):
+                    epochs[native].append(exps[native].train_epoch(e))
+        for exp in exps.values():
+            exp.close()
+        del exps
+    torch.cuda.empty_cache()
+    return {name: {"img_per_s": [e["images_per_s"] for e in epochs[n]],
+                   "data_wait_s": [e["data_wait_s"] for e in epochs[n]],
+                   "epoch_time_s": [e["epoch_time_s"] for e in epochs[n]]}
+            for name, n in (("cpp", True), ("numpy_pil", False))}
+
+
+def option_cfg(cfg, option):
+    return cfg if option == "plain" else dataclasses.replace(
+        cfg, **{option: True})
+
+
+def option_side(dev, tr, option, batches, val, rounding_only=False) -> dict:
+    """Phase 3b's model and variables under `option` ("plain": none) with
+    a fresh optimizer: one eager step from that start under deterministic
+    algorithms (its metrics and state after), one validate step, then
+    img/s eager (windows of 4 steps) and captured (make_train_bundle(k=4),
+    windows of 2 calls) with the peak memory of each, the device's busy
+    time a step (torch.profiler over two eager steps), and for remat the
+    12-step eager-vs-captured bit check. `rounding_only`: the plain step
+    with cuDNN off instead, nothing else."""
+    cfg = option_cfg(tr["cfg"], option)
+    model, model_old, state, old_vars = build_train(dev, cfg,
+                                                    tr["old_vars"])
+    with torch.no_grad():
+        model.load_state_dict(tr["model"].state_dict())
+    before = snapshot(state, model)
+    r = {}
+    if rounding_only:
+        with torch.backends.cudnn.flags(enabled=False):
+            _, m = make_train_step(cfg, model, model_old, 100)(
+                state, batches[0], old_vars)
+        return {"before": before, "after": snapshot(state, model),
+                "metrics": {k: float(v) for k, v in m.items()}}
+    step = make_train_step(cfg, model, model_old, total_iters=100)
+    with deterministic() as caught:
+        _, m = step(state, batches[0], old_vars)
+        torch.cuda.synchronize()
+    r["nondeterministic_ops"] = nondeterministic_ops(caught)
+    r["metrics"] = {k: float(v) for k, v in m.items()}
+    r["before"], r["after"] = before, snapshot(state, model)
+    hist, terms, _ = make_eval_step(cfg, model, model_old)(
+        None, val, empty_confusion(cfg.tot_classes), old_vars)
+    r["validate_loss"] = float(terms["loss"])
+    assert int(hist.sum()) == int((val["label"] != 255).sum())
+    if option == "remat":
+        bundle = make_train_bundle(cfg, model, model_old, total_iters=100,
+                                   k=BUNDLE_K)
+        bits = bits_eager_vs_bundle(
+            step, bundle, BUNDLE_K, state, model, batches[:OPTION_STEPS],
+            old_vars, {"bundle": "b" * (OPTION_STEPS // BUNDLE_K)})
+        for key in TRAIN_COUNTERS:
+            assert bits["launches_bundle"][key] == OPTION_STEPS, bits
+        r["bundle_bits"] = bits
+        del bundle
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    r["eager_img_per_s_runs"] = img_per_s_windows(
+        lambda: [step(state, batches[i], old_vars) for i in range(4)],
+        4 * BATCH)
+    r["peak_gb_eager"] = torch.cuda.max_memory_allocated() / 1e9
+    r["busy_ms"] = busy_ms(lambda: step(state, batches[0], old_vars), 2)
+    torch.cuda.reset_peak_memory_stats()
+    bundle = make_train_bundle(cfg, model, model_old, total_iters=100,
+                               k=BUNDLE_K)
+    stack = stacked(batches[:BUNDLE_K])
+    bundle(state, stack, old_vars)            # slot 0 eager, then capture
+    r["capture_s"] = bundle.capture.capture_s
+    r["captured_img_per_s_runs"] = img_per_s_windows(
+        lambda: [bundle(state, stack, old_vars) for _ in range(2)],
+        2 * BUNDLE_K * BATCH)
+    r["peak_gb_captured"] = torch.cuda.max_memory_allocated() / 1e9
+    r["reserved_gb_captured"] = torch.cuda.memory_reserved() / 1e9
+    if option == "stem_s2d":
+        r["serve"] = serve_s2d(model, dev)
+    del bundle, step, model, model_old, state, old_vars
+    gc.collect()              # the step's closures hold the model in cycles
+    torch.cuda.empty_cache()
+    return r
+
+
+def serve_s2d(model, dev) -> dict:
+    """The stem_s2d model exported (f32 npz) and served: load_inference
+    builds the space-to-depth stem from the header, and its logits equal,
+    within 1e-3 of max|ref|, those of the same npz with a plain stem."""
+    from ucd_torch.models.resnet import S2DStemConv
+    x = torch.from_numpy(make_images(2, SIZE, SIZE, seed=600)).to(
+        dev).permute(0, 3, 1, 2)
+    with tempfile.TemporaryDirectory() as tmp:
+        meta = save_inference(model, os.path.join(tmp, "s2d.npz"),
+                              export_dtype="float32")
+        assert meta["stem_s2d"] is True
+        served, _ = load_inference(meta["path"], device=dev)
+        assert isinstance(served.body.mod1_conv1, S2DStemConv)
+        plain = IncrementalSegmentationModel(
+            served.classes, backbone=served.backbone,
+            output_stride=served.output_stride,
+            head_channels=served.head_channels,
+            pooling_size=served.pooling_size).to(
+                device=dev, memory_format=torch.channels_last).eval()
+        plain.load_state_dict(served.state_dict())
+        with torch.no_grad():
+            got, want = served.forward_sem(x), plain.forward_sem(x)
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= 1e-3, err
+    return {"vs_plain_stem_logits_rel_err": err}
+
+
+def check_a10_and_gn(dev) -> dict:
+    """GroupNorm ABN, the v1 contrastive losses, Sinkhorn-Knopp and the
+    non-local block on CUDA tensors against the CPU, in value and
+    gradient, f32 (TF32 off): each value within A10_TOL of its largest
+    entry, each gradient within A10_TOL of the call's largest gradient
+    entry."""
+    from ucd_torch.models import NonLocalBlock2D
+    from ucd_torch.models.layers import ABN
+    from ucd_torch.ops import (pixel_con_loss_v1, sinkhorn_knopp,
+                               sup_con_loss)
+
+    g = torch.Generator().manual_seed(17)
+
+    def run(fn, inputs, modules=()):
+        """fn on CPU and on card copies of `inputs` and `modules`; the
+        largest error of its value and of every gradient (inputs and
+        parameters; the loss of a tensor output weights it by a ramp)."""
+        out = {}
+        for d in ("cpu", dev):
+            xs = [t.detach().clone().to(d).requires_grad_(
+                t.is_floating_point()) for t in inputs]
+            mods = [copy.deepcopy(m).to(d) for m in modules]
+            y = fn(*xs, *mods)
+            if y.ndim:
+                y = y * torch.linspace(-1, 1, y.numel(),
+                                       device=y.device).view_as(y)
+            y.sum().backward()
+            grads = [x.grad for x in xs if x.grad is not None]
+            grads += [p.grad for m in mods for p in m.parameters()
+                      if p.grad is not None]
+            out[str(d)] = [y.detach().cpu()] + [t.cpu() for t in grads]
+        # the value against its largest entry, every gradient against the
+        # largest gradient entry of the call (the non-local block's phi
+        # bias has a zero gradient in exact arithmetic)
+        ref, got = out["cpu"], out[str(dev)]
+        gmax = max(float(t.abs().max()) for t in ref[1:])
+        worst = float((ref[0] - got[0]).abs().max()
+                      / (ref[0].abs().max() + 1e-30))
+        for a, b in zip(ref[1:], got[1:]):
+            worst = max(worst, float((a - b).abs().max()) / gmax)
+        return worst
+
+    feats = torch.nn.functional.normalize(
+        torch.randn(256, 2, 128, generator=g), dim=-1)
+    labels = torch.randint(0, 16, (256,), generator=g)
+    pix = torch.nn.functional.normalize(
+        torch.randn(2048, 1, 256, generator=g), dim=-1)
+    pix_lab = torch.randint(0, 17, (2048,), generator=g)
+    logits = torch.randn(4096, 128, generator=g) * 0.2
+    gn = ABN(256, norm_type="gn").train()
+    with torch.no_grad():
+        gn.gn.weight.uniform_(0.5, 1.5, generator=g)
+        gn.gn.bias.normal_(generator=g)
+    nl = NonLocalBlock2D(2048).init_weights(g).train()
+    with torch.no_grad():
+        nl.W_bn.weight.uniform_(0.5, 1.5, generator=g)
+    res = {
+        "groupnorm_abn": run(lambda x, m: m(x), [
+            torch.randn(2, 256, 128, 128, generator=g)], [gn]),
+        "sup_con_loss_all": run(lambda f, lab: sup_con_loss(f, lab),
+                                [feats, labels]),
+        "sup_con_loss_one_simclr": run(
+            lambda f: sup_con_loss(f, contrast_mode="one"), [feats]),
+        "pixel_con_loss_v1": run(
+            lambda f, lab: pixel_con_loss_v1(f, lab, temperature=0.1),
+            [pix, pix_lab]),
+        "sinkhorn_knopp": run(lambda q: sinkhorn_knopp(q), [logits]),
+        # features at 0.2 a channel: the attention logits, sums over 1024
+        # channels, then have a spread of ~1.3 (at 1 a channel the softmax
+        # is a hard argmax that any rounding flips)
+        "nonlocal_block": run(lambda x, m: m(x), [
+            torch.randn(2, 2048, SIZE // 16, SIZE // 16, generator=g) * 0.2],
+            [nl]),
+    }
+    for k, v in res.items():
+        assert v <= A10_TOL, (k, v)
+    return res
+
+
+def phase_exec_options(dev, tr, where) -> dict:
+    """Phase 3g: (a) the host ops' C++ build on this host, held against the
+    numpy/PIL versions, its host time a batch and the experiment loop at
+    steps_per_call 4 with and without it; (b) one full-width UCD step
+    (phase 3b's model and variables, VOC 15-5s step 1, ResNet-101, batch 8,
+    512x512, bf16) under each execution option beside the plain step, with
+    the kernels' launch counts set to 0 just before the option steps and
+    read just after: remat and remat_early with the plain step's bits
+    (under deterministic algorithms) or within twice a rounding-only
+    change (the plain step with cuDNN off), stem_s2d within twice that
+    change, bf16_norm and bf16_norm_early within phase 3b's bf16 bound or
+    twice that change; peak memory and eager / captured img/s of each, 12
+    captured remat steps bit for bit against 12 eager ones, the stem_s2d
+    model exported and served; (c) GroupNorm ABN and the off-path modules
+    on the card against the CPU."""
+    out = {"host_ops": check_host_ops()}
+    out["host_ops"]["timing"] = time_host_ops()
+    out["loop_steps_per_call_4"] = time_loop_native(dev)
+    h, lp = out["host_ops"], out["loop_steps_per_call_4"]
+    log("[3g] host ops " + ("found built" if h["prebuilt"] else
+                             f"built in {h['build_s']:.2f} s")
+        + f", {h['geometry_cases']} "
+        f"VOC-shaped crop/resize/flip cases equal to PIL, normalize within "
+        f"{h['normalize_max_abs_diff']:.3g} of numpy; host ms a batch "
+        f"(C++ / numpy+PIL): " + "; ".join(
+            f"{k} {json.dumps([round(x, 2) for x in v['native_ms_per_batch']])}"
+            f" / {json.dumps([round(x, 2) for x in v['numpy_pil_ms_per_batch']])}"
+            for k, v in h["timing"].items())
+        + f"; loop at steps_per_call 4 img/s (C++ / numpy+PIL): "
+        f"{json.dumps(lp['cpp']['img_per_s'])} / "
+        f"{json.dumps(lp['numpy_pil']['img_per_s'])}, loader wait s "
+        f"{json.dumps(lp['cpp']['data_wait_s'])} / "
+        f"{json.dumps(lp['numpy_pil']['data_wait_s'])}")
+
+    cfg = tr["cfg"]
+    batches = train_batches(OPTION_STEPS, BATCH, SIZE, cfg.tot_classes,
+                            seed=170)
+    val = train_batches(1, BATCH, SIZE, cfg.tot_classes, seed=190)[0]
+    rounding = option_side(dev, tr, "plain", batches, val,
+                           rounding_only=True)
+    sides, devs = {}, {}
+    # ---- this phase's path: counts set to 0 here, read right after it
+    zero_kernel_counts()
+    for option in ("plain",) + OPTIONS + ("plain_again",):
+        s = sides[option] = option_side(dev, tr, option.replace("_again", ""),
+                                        batches, val)
+        if option != "plain":
+            # against the plain step from the same start; the snapshots
+            # go, so that no side's peak memory holds an earlier one's
+            devs[option] = dp_deviation(sides["plain"]["before"],
+                                        (sides["plain"]["metrics"],
+                                         sides["plain"]["after"]),
+                                        (s["metrics"], s.pop("after")))
+            del s["before"]
+        log(f"[3g] {option}: eager img/s "
+            f"{json.dumps(s['eager_img_per_s_runs'])}, captured"
+            f" (K={BUNDLE_K}) {json.dumps(s['captured_img_per_s_runs'])}"
+            f", peak GB eager {s['peak_gb_eager']:.2f} / captured "
+            f"{s['peak_gb_captured']:.2f}, device busy a step "
+            f"{s['busy_ms']:.2f} ms")
+    counts = kernel_counts()
+    # ----------------------------------------------------------------
+    n_sides = len(OPTIONS) + 2
+    for key in TRAIN_COUNTERS:
+        assert counts[key] > 0, (key, counts)
+    assert counts["fused_argmax"] == n_sides, counts
+    plain = sides["plain"]
+    exact = not plain["nondeterministic_ops"] and \
+        devs["plain_again"]["bits_equal"]
+    rnd = dp_deviation(plain["before"], (plain["metrics"], plain["after"]),
+                       (rounding["metrics"], rounding["after"]))
+    del plain["before"], plain["after"], rounding
+    out["rounding_only"] = rnd
+    out["deterministic_plain_bits_equal"] = exact
+    out["launches"] = counts
+    for option in OPTIONS:
+        s = sides[option]
+        dv = devs[option]
+        if option in ("remat", "remat_early") and exact:
+            assert dv["bits_equal"], (option, dv)
+        else:
+            check_dp_deviation(dv, rnd, option)
+        out[option] = {
+            "vs_plain": dv,
+            **{k: s[k] for k in ("eager_img_per_s_runs",
+                                 "captured_img_per_s_runs", "peak_gb_eager",
+                                 "peak_gb_captured", "reserved_gb_captured",
+                                 "busy_ms", "capture_s", "validate_loss")}}
+        if "serve" in s:
+            out[option]["serve"] = s["serve"]
+        if "bundle_bits" in s:
+            b = s["bundle_bits"]
+            out[option]["bundle_bits"] = {
+                k: b[k] for k in ("exact", "n_tensors", "n_steps",
+                                  "nondeterministic_ops")}
+        log(f"[3g] {option} against the plain step: loss terms "
+            f"{dv['terms_rel_err']:.3g}, update {dv['update_rel_err']:.3g}, "
+            f"worst tensor {dv['worst_update_err']:.3g}, bits equal "
+            f"{dv['bits_equal']}")
+    for option in ("plain", "plain_again"):
+        out[option] = {k: sides[option][k] for k in (
+            "eager_img_per_s_runs", "captured_img_per_s_runs",
+            "peak_gb_eager", "peak_gb_captured", "reserved_gb_captured",
+            "busy_ms", "capture_s")}
+    b = out["remat"]["bundle_bits"]
+    log(f"[3g] {b['n_steps']} remat steps eager and through "
+        f"make_train_bundle(k={BUNDLE_K}): "
+        + ("the same bits in all state tensors and per-step metrics"
+           if b["exact"] else "within two eager runs' spread")
+        + f"; the plain step with cuDNN off moves it {json.dumps(rnd)}; "
+        f"launches {json.dumps(counts)}")
+    out["a10_gn_card_vs_cpu"] = check_a10_and_gn(dev)
+    log(f"[3g] GroupNorm ABN and the off-path modules, card vs CPU (max err "
+        f"of the largest entry, bound {A10_TOL}): "
+        f"{json.dumps(out['a10_gn_card_vs_cpu'])}")
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: timings
 # ---------------------------------------------------------------------------
 
@@ -2916,9 +3386,11 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also write torch.profiler tables of "
                          "predict_labels and of the train step into DIR")
-    ap.add_argument("--only", choices=["kernels", "dp"], default=None,
-                    help="kernels: stop after the kernel checks; dp: build, "
-                         "then phases 3b and 3f only (prints no result)")
+    ap.add_argument("--only", choices=["kernels", "dp", "options"],
+                    default=None,
+                    help="kernels: stop after the kernel checks; dp / "
+                         "options: build, then phases 3b and 3f / 3g only "
+                         "(prints no result)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the "
@@ -2952,6 +3424,11 @@ def main(argv=None) -> int:
     if args.only == "dp":
         phase_dp(dev, phase_train(dev), where)
         lap("3b + 3f")
+        return 0
+    if args.only == "options":
+        options = phase_exec_options(dev, phase_train(dev), where)
+        log(json.dumps({"options": {"card": where, **options}}))
+        lap("3b + 3g")
         return 0
 
     # phase 2: every kernel against its plain version
@@ -3012,6 +3489,12 @@ def main(argv=None) -> int:
     # lost kernel events once this phase had run before them
     dp = phase_dp(dev, trained, where)
     lap("3f data parallelism (one NCCL rank)")
+
+    # phase 3g: the host ops' build, the execution options (the option
+    # steps set the counts to 0 and read them), GroupNorm ABN and the
+    # off-path modules
+    options = phase_exec_options(dev, trained, where)
+    lap("3g host ops, execution options, off-path modules")
     log(json.dumps({"bundle": {
         "card": where, "bits": bundled, "timing": captured,
         "capture_failure": failure,
@@ -3025,7 +3508,9 @@ def main(argv=None) -> int:
         "raw_ucd_step_img_per_s": training["img_per_s"],
         "raw_ucd_step_img_per_s_runs": training["img_per_s_runs"],
         "steady_state": loop}}))
+    log(json.dumps({"options": {"card": where, **options}}))
     exp_counts = experiment["launches"]
+    opt_counts = options["launches"]
 
     kernels = [{
         "name": "fused_argmax", "route": "cuda",
@@ -3037,6 +3522,7 @@ def main(argv=None) -> int:
         "launches_train": counts["fused_argmax"],
         "launches_experiment": exp_counts["fused_argmax"],
         "launches_dp": dp["launches"]["fused_argmax"],
+        "launches_options": opt_counts["fused_argmax"],
         "max_abs_err": err["max_abs_err"],
         "mismatch_rate": err["mismatch_rate"],
         **timing}]
@@ -3057,6 +3543,7 @@ def main(argv=None) -> int:
             "launches_bundle": bundled["launches_bundle"][name],
             "launches_dp": dp["launches"][name],
             "launches_dp_bundle": dp["bundle"]["launches_bundle"][name],
+            "launches_options": opt_counts[name],
             "max_abs_err": loss_err[err_key],
             "max_rel_grad_err": loss_err["grad_rel_err"],
             **t})
@@ -3080,6 +3567,7 @@ def main(argv=None) -> int:
             "launches_bundle": bundled["launches_bundle"][name],
             "launches_dp": dp["launches"][name],
             "launches_dp_bundle": dp["bundle"]["launches_bundle"][name],
+            "launches_options": opt_counts[name],
             "max_abs_err": con_err[abs_key], "max_rel_err": con_err[rel_key],
             "mode": "bf16", **t["bf16"],
             **{f"{k}_f32": t["f32"][k] for k in (

@@ -14,6 +14,7 @@ import torch
 from PIL import Image
 
 from ucd_torch import cli as TCLI
+from ucd_torch import config as TC
 from ucd_torch.engine.export import load_inference
 from ucd_torch.engine.predictor import Predictor
 from ucd_torch.utils import reporting as TR
@@ -72,18 +73,22 @@ def test_config_from_args_matches_jax(argv):
     (["--steps_per_call", "2"], "--steps_per_call"),
 ])
 def test_unported_flags_are_refused_by_name(tmp_path, extra, name):
-    """Each flag of a feature the port lacks (`--remat`, `--xla_options`)
-    is refused by name; `--steps_per_call`, ported with the CUDA-graph
-    bundle, and the multi-process launch flags, ported with data
-    parallelism (ucd_torch/parallel), are taken."""
+    """The flag of a feature the port lacks (`--xla_options`, the JAX
+    package's TPU compiler options) is refused by name; `--steps_per_call`,
+    ported with the CUDA-graph bundle, the multi-process launch flags,
+    ported with data parallelism (ucd_torch/parallel), and `--remat`,
+    ported with the model's execution options, are taken."""
     argv = ["train", "--synthetic", "4", "--device", "cpu",
             "--ckpt_dir", str(tmp_path / "ck"), "--logdir",
             str(tmp_path / "logs")] + extra
-    if name not in ("--remat", "--xla_options"):
+    if name != "--xla_options":
         args = TCLI.build_parser().parse_args(argv)
         TCLI.refuse_unported(args)
         if name == "--steps_per_call":
             assert TCLI.config_from_args(args).steps_per_call == 2
+        elif name == "--remat":
+            cfg = TCLI.config_from_args(args)
+            assert cfg.remat and TC.unsupported_fields(cfg) == []
         else:
             # parsed for maybe_initialize, which main() calls next
             attr = name.lstrip("-")

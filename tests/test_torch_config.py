@@ -93,10 +93,15 @@ def test_task_registry_matches_everywhere():
 
 
 def test_tpu_only_fields_are_reported():
-    """Fields that only steer the TPU execution stay in the Config; a
-    non-default value is reported (the train step raises on it).
-    `steps_per_call` is the port's own (K steps a CUDA-graph call)."""
+    """The one field that steers the JAX package's TPU backend
+    (`xla_options`) stays in the Config and a non-default value is reported
+    (the train step raises on it). `steps_per_call` is the port's own (K
+    steps a CUDA-graph call); the model's execution options are ported and
+    `data_axis` is accepted and ignored, as in the JAX package."""
     assert TC.unsupported_fields(TC.Config()) == []
+    assert TC.TPU_ONLY_DEFAULTS == {"xla_options": ""}
     cfg = TC.Config(remat=True, steps_per_call=4, xla_options="a=b")
-    assert sorted(TC.unsupported_fields(cfg)) == ["remat", "xla_options"]
-    assert TC.unsupported_fields(TC.Config(steps_per_call=4)) == []
+    assert sorted(TC.unsupported_fields(cfg)) == ["xla_options"]
+    assert TC.unsupported_fields(TC.Config(
+        steps_per_call=4, remat=True, remat_early=True, stem_s2d=True,
+        bf16_norm=True, bf16_norm_early=True, data_axis=2)) == []

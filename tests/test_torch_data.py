@@ -1,12 +1,13 @@
 """The port's data pipeline against the JAX package's, bit for bit: the same
 inputs and the same `np.random.Generator` seed give the same arrays.
 
-The JAX package binds a C++ build of its host ops when one is present
-(native/data_ops.cc); its host normalize there rounds differently from the
-numpy formula (ROADMAP §C). The port has the numpy/PIL versions only, so
-the transforms are held against the JAX package with its binding switched
-off (`jax_plain`), and the geometric ops, which the binding computes
-PIL-exactly, also against the binding itself."""
+Both packages bind a C++ build of their host ops when one is present
+(native/data_ops.cc, and the port's copy of it); the host normalize there
+rounds differently from the numpy formula. So the numpy/PIL paths are held
+against each other here with both bindings switched off (`jax_plain`), and
+the geometric ops, which the bindings compute PIL-exactly, also against
+the JAX binding itself; tests/test_torch_native_ops.py holds the two
+bindings against each other."""
 
 import os
 
@@ -28,8 +29,9 @@ from ucd_tpu.utils import viz as JV
 
 @pytest.fixture
 def jax_plain(monkeypatch):
-    """The JAX package's data ops on their numpy/PIL paths."""
+    """Both packages' data ops on their numpy/PIL paths."""
     monkeypatch.setattr(JN, "_LIB", False)
+    monkeypatch.setattr(TN, "_LIB", False)
 
 
 def _pair(seed, h=37, w=53, n_classes=21, dtype=np.uint8):
@@ -309,13 +311,14 @@ def test_incremental_dataset_on_disk_matches_jax(tmp_path, dataset, train):
 
 
 class _jax_plain_ops:
-    """The JAX data ops on their numpy/PIL paths within a block."""
+    """Both packages' data ops on their numpy/PIL paths within a block."""
 
     def __enter__(self):
-        self.saved, JN._LIB = JN._LIB, False
+        self.saved = JN._LIB, TN._LIB
+        JN._LIB = TN._LIB = False
 
     def __exit__(self, *exc):
-        JN._LIB = self.saved
+        JN._LIB, TN._LIB = self.saved
 
 
 def test_city_domain_dataset_matches_jax(tmp_path):

@@ -33,6 +33,8 @@ def test_import_pulls_in_no_jax():
         "import ucd_torch.engine.checkpoint, ucd_torch.engine.logger\n"
         "import ucd_torch.engine.experiment, ucd_torch.models.pretrained\n"
         "import ucd_torch.utils.reporting, ucd_torch.utils.viz\n"
+        "import ucd_torch.ops.assignment, ucd_torch.ops.contrastive_v1\n"
+        "import ucd_torch.models.nonlocal_block\n"
         f"bad = sorted(m for m in sys.modules if m.split('.')[0] in "
         f"{FORBIDDEN!r})\n"
         "assert not bad, bad\n"

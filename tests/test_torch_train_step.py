@@ -480,8 +480,9 @@ def test_ucd_step_feeds_attended_pre_logits():
 def test_unported_branches_raise_by_name():
     """No branch is dropped silently. The iCaRL criteria and the
     regularizers are ported: LWF-MC trains (its dense BCE criterion and
-    iCaRL term, no fused kernel) and EWC builds its state; the TPU-only
-    fields still raise on a non-default value, naming the field."""
+    iCaRL term, no fused kernel) and EWC builds its state; `remat` is
+    ported and takes a step; `xla_options`, the one TPU-only field left,
+    raises on a non-default value, naming the field."""
     def step_for(**kw):
         cfg, _ = _cfgs(1, kw.pop("method", "MiB"), "float32", **kw)
         m = make_model(cfg)
@@ -506,9 +507,19 @@ def test_unported_branches_raise_by_name():
                                  TOTAL_ITERS, device="cpu")
     assert state.reg_state.kind == "ewc" and not state.reg_state.penalize
     cfg, m, mo = step_for(remat=True)
-    with pytest.raises(NotImplementedError, match="remat"):
+    state, old = build_train_state(cfg, m, torch.Generator().manual_seed(0),
+                                   TOTAL_ITERS,
+                                   prev_model_state=mo.state_dict(),
+                                   device="cpu")
+    _, metrics = make_train_step(cfg, m, mo, TOTAL_ITERS,
+                                 device="cpu")(state, batch, old)
+    assert np.isfinite(float(metrics["loss_tot"]))
+    assert m.body.remat_blocks == set(m.body.block_names)
+    make_eval_step(cfg, m, mo, device="cpu")
+    cfg, m, mo = step_for(xla_options="a=b")
+    with pytest.raises(NotImplementedError, match="xla_options"):
         make_train_step(cfg, m, mo, TOTAL_ITERS, device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
+    with pytest.raises(NotImplementedError, match="xla_options"):
         make_eval_step(cfg, m, mo, device="cpu")
 
 

@@ -104,6 +104,39 @@ def batchnorm_worker(rank, spec_path, out):
                f"{out}/bn{rank}.pt")
 
 
+def remat_worker(rank, out):
+    """A ResNet-18 body's train-mode forward and backward on this rank's
+    image, plain and with every block rematerialized, from one seeded f64
+    init; saves both runs' gradients, BatchNorm state and the number of
+    statistics gathers each made."""
+    import ucd_torch.models.layers as L
+    from ucd_torch.models.resnet import ResNet
+
+    calls = []
+    gather = L.all_gather_rows
+
+    def counting(x):
+        calls.append(1)
+        return gather(x)
+
+    L.all_gather_rows = counting
+    x = torch.from_numpy(np.random.RandomState(4).randn(2, 3, 32, 32))
+    res = {}
+    for remat in (False, True):
+        torch.manual_seed(0)
+        body = ResNet((2, 2, 2, 2), False, 16, dtype=torch.float64,
+                      remat=remat).train()
+        calls.clear()
+        y = body(x[rank:rank + 1])
+        (y * y).sum().backward()
+        res[remat] = {"grads": {n: p.grad for n, p in
+                                body.named_parameters()},
+                      "state": {k: v.clone() for k, v in
+                                body.state_dict().items()},
+                      "gathers": len(calls)}
+    torch.save(res, f"{out}/remat{rank}.pt")
+
+
 def indivisible_worker(rank, out):
     """An indivisible global batch raises before any step."""
     caught = []

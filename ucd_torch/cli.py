@@ -25,8 +25,10 @@ processes over gloo under `--device cpu`) with --coordinator,
 --num_processes and --process_id (or the UCD_TPU_COORDINATOR /
 UCD_TPU_NUM_PROCESSES / UCD_TPU_PROCESS_ID environment), or under
 torchrun with --distributed (ucd_torch/parallel/distributed.py);
-`--batch_size` is then the global batch. The JAX package's TPU execution
-options (--remat, --xla_options) are parsed and refused by name when set.
+`--batch_size` is then the global batch. `--remat` rematerializes every
+residual block in the backward, as in the JAX package; `--xla_options`
+(compiler options of the JAX package's TPU backend) is parsed and refused
+by name when set.
 """
 
 from __future__ import annotations
@@ -169,7 +171,8 @@ def _add_common(p: argparse.ArgumentParser) -> None:
                    help="accepted and ignored (reference run.py NCCL "
                         "rendezvous compat)")
     p.add_argument("--remat", action="store_true", default=False,
-                   help="JAX package only: refused")
+                   help="rematerialize every residual block in the "
+                        "backward (less activation memory, more compute)")
     p.add_argument("--nan_guard", action="store_true", default=False)
     p.add_argument("--steps_per_call", type=int, default=1,
                    help="train steps per call: K > 1 captures the step "
@@ -382,9 +385,8 @@ def _run_one_step(cfg: Config, profile_dir=None, synthetic: int = 0,
 
 # flags parsed for drop-in compatibility whose feature the port does not
 # have: (flag, attribute, why); refused by name when set
-_REFUSED = (("--remat", "remat", "the JAX package only"),
-            ("--xla_options", "xla_options", "the JAX package only"))
-_UNSET = {"remat": False, "xla_options": ""}
+_REFUSED = (("--xla_options", "xla_options", "the JAX package only"),)
+_UNSET = {"xla_options": ""}
 
 
 def refuse_unported(args: argparse.Namespace) -> None:

@@ -4,12 +4,15 @@ The port's own copy of ucd_tpu/config.py (the port imports nothing of the
 JAX package): the same typed dataclass with the same fields and defaults,
 the `--method` preset expander `apply_method`, the bug-compatible preset and
 `make_config`. Every field is kept so that presets and CLI flags mean the
-same in both packages. Fields that only steer the TPU execution
-(`xla_options`, `stem_s2d`, `remat`, `remat_early`, `bf16_norm`,
-`bf16_norm_early`, `data_axis`) stay as fields; the port's train step
-raises on a non-default value of one (`unsupported_fields`) instead of
-ignoring it. `steps_per_call` is the port's too: K train steps a call
-through a CUDA graph (engine/train.py `make_train_bundle`).
+same in both packages. The model's execution options (`stem_s2d`,
+`remat`, `remat_early`, `bf16_norm`, `bf16_norm_early`) mean what they
+mean in the JAX package (models/segmentation.py `make_model`), and
+`data_axis` is accepted and ignored, as there (no code of either package
+reads it). `xla_options` forwards compiler options to the JAX package's
+TPU backend and has no counterpart: the port's train step raises on a
+non-default value (`unsupported_fields`) instead of ignoring it.
+`steps_per_call` is the port's too: K train steps a call through a CUDA
+graph (engine/train.py `make_train_bundle`).
 """
 
 from __future__ import annotations
@@ -29,9 +32,7 @@ METHODS = ("FT", "LWF", "LWF-MC", "ILT", "EWC", "RW", "PI", "MiB", "att",
 NUM_CLASSES = {"voc": 21, "ade": 151, "city": 20, "city_domain": 19}
 
 # TPU-execution fields and the only value of each that the port implements
-TPU_ONLY_DEFAULTS = {"xla_options": "", "stem_s2d": False, "remat": False,
-                     "remat_early": False, "bf16_norm": False,
-                     "bf16_norm_early": False, "data_axis": 0}
+TPU_ONLY_DEFAULTS = {"xla_options": ""}
 
 
 @dataclass
@@ -106,15 +107,15 @@ class Config:
     param_dtype: str = "float32"   # master weights; f32 is the only one
     xla_options: str = ""          # TPU compiler options (JAX package only)
     bf16_upsample: bool = True     # dense path only: upsample logits in bf16
-    bf16_norm: bool = False        # JAX package only
-    bf16_norm_early: bool = False  # JAX package only
+    bf16_norm: bool = False        # every ABN rounds its output to bf16
+    bf16_norm_early: bool = False  # stem + mod2 ABNs in bf16 (bf16 policy)
     stable_norm: bool = False      # the port always computes the
                                    # cancellation-free BatchNorm variance
-    remat_early: bool = False      # JAX package only
+    remat_early: bool = False      # rematerialize the mod2 blocks
     steps_per_call: int = 1        # train steps a call (CUDA graph)
-    data_axis: int = 0             # JAX package only (mesh axis size)
-    remat: bool = False            # JAX package only
-    stem_s2d: bool = False         # JAX package only (stem layout)
+    data_axis: int = 0             # accepted and ignored, as in JAX
+    remat: bool = False            # rematerialize every residual block
+    stem_s2d: bool = False         # stem conv space-to-depth packed
     nan_guard: bool = False        # skip updates with non-finite grads
     # the contrastive term through the streaming CUDA kernels of
     # ops/tiled_contrastive.py (the name is the JAX package's, kept so that

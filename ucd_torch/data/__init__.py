@@ -1,6 +1,6 @@
 """The port's data pipeline: dataset readers, incremental filtering and
-label remapping, paired transforms and the batched loader (host-side
-numpy/PIL)."""
+label remapping, paired transforms and the batched loader (host-side:
+the C++ host ops of `native.py`, built at first use, else numpy/PIL)."""
 
 from . import transforms
 from .datasets import (
@@ -21,7 +21,8 @@ from .incremental import (
     voc_remap_lut,
 )
 from .loader import DataLoader, split_train_val
-from .native import normalize_image, pil_resize_pair, remap_labels
+from .native import (has_native, normalize_image, pil_resize_pair,
+                     remap_labels)
 from .transforms import IMAGENET_MEAN, IMAGENET_STD
 
 __all__ = [
@@ -30,6 +31,6 @@ __all__ = [
     "SyntheticSegmentation", "VOCSegmentation",
     "make_incremental_dataset", "Subset", "ade_remap_lut", "build_remap_lut",
     "city_remap_lut", "filter_images", "voc_remap_lut", "DataLoader",
-    "split_train_val", "normalize_image", "pil_resize_pair",
+    "split_train_val", "has_native", "normalize_image", "pil_resize_pair",
     "remap_labels", "IMAGENET_MEAN", "IMAGENET_STD",
 ]

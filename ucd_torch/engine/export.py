@@ -62,6 +62,7 @@ def load_inference(path: str, device=None):
         pooling_size=meta["pooling"],
         dtype=dtype,
         param_dtype=dtype,  # serving keeps the npz's weights as they are
+        stem_s2d=bool(meta.get("stem_s2d", False)),
     )
     model.load_state_dict(flax_to_state_dict(tensors), strict=True)
     model.to(device=dev, memory_format=torch.channels_last).eval()
@@ -83,7 +84,7 @@ def _write_npz(sd, out_path: str, export_dtype: str, dataset: str,
             v = np.asarray(v, np.float32)
         flat[k] = v
     meta = {"bf16_keys": bf16_keys, "format": FORMAT, **arch,
-            "stem_s2d": False, "dataset": dataset, "dtype": export_dtype}
+            "dataset": dataset, "dtype": export_dtype}
     flat[_META_KEY] = np.frombuffer(json.dumps(meta).encode(), np.uint8)
     if not out_path.endswith(".npz"):
         out_path += ".npz"  # np.savez appends it silently; keep paths honest
@@ -101,7 +102,8 @@ def save_inference(model: IncrementalSegmentationModel, out_path: str,
         model.state_dict(), out_path, export_dtype,
         backbone=model.backbone, output_stride=model.output_stride,
         classes=list(model.classes), head_channels=model.head_channels,
-        pooling=model.pooling_size, dataset=dataset)
+        pooling=model.pooling_size, stem_s2d=bool(model.stem_s2d),
+        dataset=dataset)
 
 
 def _classes_from_params(params) -> Tuple[list, Optional[int]]:
@@ -149,7 +151,7 @@ def export_inference(ckpt_path: str, out_path: str, cfg,
         state_dict_of(ms), out_path, export_dtype, backbone=cfg.backbone,
         output_stride=cfg.output_stride, classes=classes,
         head_channels=head_channels, pooling=cfg.pooling,
-        dataset=cfg.dataset)
+        stem_s2d=bool(cfg.stem_s2d), dataset=cfg.dataset)
 
 
 def _bucket_hw(h: int, w: int, multiple: int) -> Tuple[int, int]:

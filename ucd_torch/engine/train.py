@@ -304,7 +304,7 @@ def _check_cfg(cfg: Config):
     bad = unsupported_fields(cfg)
     if bad:
         raise NotImplementedError(
-            f"config fields {bad} steer the TPU execution of the JAX "
+            f"config fields {bad} steer the TPU backend of the JAX "
             f"package; the port implements only their defaults")
 
 

@@ -9,12 +9,18 @@ mechanical:
 
   params/<path>/kernel  (kh, kw, in, out) -> <path>.weight (out, in, kh, kw)
   params/<path>/scale                     -> <path>.weight
-  params/<path>/bias                      -> <path>.bias
+  params/<path>/bias                      -> <path>.bias (a norm's, or a
+                                             conv's: the classifiers, the
+                                             NonLocalBlock2D's 1x1 convs)
   batch_stats/<path>/mean                 -> <path>.running_mean
   batch_stats/<path>/var                  -> <path>.running_var
 
 plus a zero `num_batches_tracked` per BatchNorm, so that
-`load_state_dict(..., strict=True)` sees every key of the module.
+`load_state_dict(..., strict=True)` sees every key of the module. A
+GroupNorm ABN (`gn/scale`, `gn/bias`) has parameters only. The mapping
+holds for any module named after its flax scopes: a whole model, one ABN,
+a `NonLocalBlock2D` (`g`, `theta`, `phi`, `W` with biases, `W_bn` with its
+statistics).
 
 Arrays keep their dtype in both directions (f32, f64 for the f64 test
 model; bf16 tensors widen to f32 on the way out). `load_flax_variables` and

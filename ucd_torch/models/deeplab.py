@@ -28,13 +28,15 @@ class DeeplabV3(nn.Module):
                  pooling_size: Optional[int] = None,
                  activation_param: float = 0.01,
                  dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 norm_dtype: Optional[torch.dtype] = None):
         super().__init__()
         param_dtype = param_dtype or wide_dtype(dtype)
         self.pooling_size = pooling_size
         dilations = [6, 12, 18] if out_stride == 16 else [12, 24, 32]
         hc = hidden_channels
-        abn = dict(activation_param=activation_param, dtype=dtype)
+        abn = dict(activation_param=activation_param, dtype=dtype,
+                   norm_dtype=norm_dtype)
         self.map_conv0 = conv(in_channels, hc, 1, dtype=param_dtype)
         self.map_conv1 = conv(in_channels, hc, 3, dilation=dilations[0],
                               dtype=param_dtype)

@@ -6,21 +6,39 @@ activations in `channels_last` memory, so NCHW tensors are NHWC in memory).
 Dtype policy, as in the JAX package: convolutions take and return the
 model's compute dtype (bf16 or f32; cuDNN accumulates in f32) while their
 master weights stay f32 and are cast at each call, so the optimizer, weight
-decay and momentum act on f32 and the gradients arrive in f32. Every ABN
-normalizes in f32 from f32 statistics and casts back to the compute dtype
-after the activation. float64 is a test-only compute dtype: weights,
-statistics and normalization are then all f64.
+decay and momentum act on f32 and the gradients arrive in f32. By default
+every ABN normalizes in f32 from f32 statistics and casts back to the
+compute dtype after the activation. With a bf16 `norm_dtype` (the JAX
+package's `bf16_norm` / `bf16_norm_early`) the normalized output is rounded
+to bf16 before the activation, where flax's `BatchNorm(dtype=bf16)` rounds
+it; a bf16 input is then handed to the BatchNorm as it is (f32 weights and
+statistics, f32 arithmetic inside), with no f32 copy. float64 is a
+test-only compute dtype: weights, statistics and normalization are then
+all f64.
 
 Train-mode BatchNorm follows flax: the batch is normalized with its biased
 variance and the running variance takes the *biased* batch variance too
 (torch's own update takes the unbiased one). The variance is always the
 cancellation-free one (`stable_norm=True` on the JAX side); flax's default
 one-pass E[x^2]-E[x]^2 is not reproduced.
+
+Rematerialization (`remat_contexts`, the JAX package's `remat` /
+`remat_early`): a block run under `torch.utils.checkpoint` runs its
+forward twice, once in the forward pass and again in the backward. The
+running statistics and `num_batches_tracked` move in the first run only, and
+inside a process group the recompute reuses the global statistics of the
+first run instead of gathering them again, so a rematerialized step leaves
+the statistics as the plain step does (flax's `nn.remat` recomputes
+functionally: its `batch_stats` move once).
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import math
+import threading
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -71,6 +89,26 @@ def wide_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float64 if dtype == torch.float64 else torch.float32
 
 
+_remat = threading.local()
+
+
+@contextlib.contextmanager
+def _remat_phase(phase: str):
+    saved = getattr(_remat, "phase", None)
+    _remat.phase = phase
+    try:
+        yield
+    finally:
+        _remat.phase = saved
+
+
+def remat_contexts():
+    """`context_fn` for `torch.utils.checkpoint`: marks the first forward
+    and the recompute, which runs in the backward (on whichever thread the
+    autograd engine runs it)."""
+    return _remat_phase("forward"), _remat_phase("recompute")
+
+
 class _SyncBatchNorm(torch.autograd.Function):
     """Train-mode batch norm over the global batch of a process group.
 
@@ -91,27 +129,42 @@ class _SyncBatchNorm(torch.autograd.Function):
     device time of the generic ops there) and the generic ops elsewhere
     (`var_mean`, the normalize, the inference-mode BatchNorm backward plus
     the global sums' term). Returns (y, mean, biased variance) for the
-    running statistics."""
+    running statistics.
+
+    A bf16 input with f32 weights is taken as it is on CUDA (the fused
+    kernels compute in f32 and return bf16); elsewhere it is widened to the
+    weights' dtype and the output rounded back. `stats` = (mean, biased
+    variance, per-process counts) of an earlier run over the same batch (a
+    rematerialized block's recompute) skips the statistics and their
+    gather."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps):
+    def forward(ctx, x, weight, bias, eps, stats=None):
         c = x.shape[1]
+        in_dtype = x.dtype
+        if not x.is_cuda and x.dtype != weight.dtype:
+            x = x.to(weight.dtype)
         if not (x.is_contiguous()
                 or x.is_contiguous(memory_format=torch.channels_last)):
             x = x.contiguous()
-        if x.is_cuda:
-            mean, invstd = torch.batch_norm_stats(x, 0.0)
-            # the biased variance (the kernel's invstd is 0 for a constant
-            # channel)
-            var = torch.where(invstd > 0, invstd.pow(-2), 0.0)
+        if stats is not None:
+            mean, var, counts = stats
         else:
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
-        n = x.new_full((1,), x.numel() // c)
-        stats = all_gather_rows(torch.cat([n, mean, var * n])[None])
-        counts, means, m2 = stats[:, :1], stats[:, 1:c + 1], stats[:, c + 1:]
-        total = counts.sum()
-        mean = (counts * means).sum(0) / total
-        var = (m2.sum(0) + (counts * (means - mean) ** 2).sum(0)) / total
+            if x.is_cuda:
+                mean, invstd = torch.batch_norm_stats(x, 0.0)
+                # the biased variance (the kernel's invstd is 0 for a
+                # constant channel)
+                var = torch.where(invstd > 0, invstd.pow(-2), 0.0)
+            else:
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            n = mean.new_full((1,), x.numel() // c)
+            gathered = all_gather_rows(torch.cat([n, mean, var * n])[None])
+            counts, means = gathered[:, :1], gathered[:, 1:c + 1]
+            m2 = gathered[:, c + 1:]
+            total = counts.sum()
+            mean = (counts * means).sum(0) / total
+            var = (m2.sum(0) + (counts * (means - mean) ** 2).sum(0)) / total
+            counts = counts.to(torch.int32).view(-1)
         invstd = torch.rsqrt(var + eps)
         shape = (1, c, 1, 1)
         if x.is_cuda:
@@ -120,18 +173,19 @@ class _SyncBatchNorm(torch.autograd.Function):
             # (x - mean) first: x * scale + shift would cancel where the
             # variance is small beside the mean
             y = torch.addcmul(bias.view(shape), x - mean.view(shape),
-                              (invstd * weight).view(shape))
-        ctx.save_for_backward(x, weight, mean, var, invstd,
-                              counts.to(torch.int32).view(-1))
+                              (invstd * weight).view(shape)).to(in_dtype)
+        ctx.save_for_backward(x, weight, mean, var, invstd, counts)
         ctx.eps = eps
-        ctx.mark_non_differentiable(mean, var)
-        return y, mean, var
+        ctx.in_dtype = in_dtype
+        ctx.mark_non_differentiable(mean, var, counts)
+        return y, mean, var, counts
 
     @staticmethod
-    def backward(ctx, dy, _dmean, _dvar):
+    def backward(ctx, dy, _dmean, _dvar, _dcounts):
         x, weight, mean, var, invstd, counts = ctx.saved_tensors
         c = x.shape[1]
         dw, db = ctx.needs_input_grad[1:3]
+        dy = dy.to(x.dtype)
         if not (dy.is_contiguous()
                 or dy.is_contiguous(memory_format=torch.channels_last)):
             dy = dy.contiguous()
@@ -142,7 +196,7 @@ class _SyncBatchNorm(torch.autograd.Function):
             both = all_reduce_sum_(torch.cat([sum_dy, sum_dy_xmu]))
             dx = torch.batch_norm_backward_elemt(
                 dy, x, mean, invstd, weight, both[:c], both[c:], counts)
-            return dx, grad_w, grad_b, None
+            return dx, grad_w, grad_b, None, None
         # inference mode: the statistics are constants here (CUDA's kernel
         # asks for them twice, as running and as saved statistics)
         dx, grad_w, grad_b = torch.ops.aten.native_batch_norm_backward(
@@ -157,7 +211,8 @@ class _SyncBatchNorm(torch.autograd.Function):
         shape = (1, c, 1, 1)
         dx = dx.addcmul_(x - mean.view(shape), a.view(shape)).add_(
             b.view(shape))
-        return dx, grad_w if dw else None, grad_b if db else None, None
+        return (dx.to(ctx.in_dtype), grad_w if dw else None,
+                grad_b if db else None, None, None)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -169,21 +224,37 @@ class BatchNorm2d(nn.BatchNorm2d):
     processes by `_SyncBatchNorm`, as the JAX program's are (it is one
     program over the global batch). torch's SyncBatchNorm is not used: it
     runs on CUDA only and its running variance is the unbiased one. Eval
-    mode (the frozen donor, `fix_bn`) never synchronizes."""
+    mode (the frozen donor, `fix_bn`) never synchronizes.
+
+    Under rematerialization (`remat_contexts`) the statistics move in the
+    first forward only; the recompute normalizes with the batch statistics
+    again (from the first run's global ones inside a process group)."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        # global statistics of rematerialized first runs, oldest first
+        self._remat_stats = collections.deque()
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
-        self.num_batches_tracked.add_(1)
+        phase = getattr(_remat, "phase", None)
+        update = phase != "recompute"
+        if update:
+            self.num_batches_tracked.add_(1)
         factor = self.momentum if self.momentum is not None \
             else 1.0 / float(self.num_batches_tracked)
         if is_distributed():
-            y, mean, var = _SyncBatchNorm.apply(x, self.weight, self.bias,
-                                                self.eps)
-            with torch.no_grad():
-                self.running_mean.lerp_(mean, factor)
-                self.running_var.lerp_(var, factor)
+            stats = self._remat_stats.popleft() if not update else None
+            y, mean, var, counts = _SyncBatchNorm.apply(
+                x, self.weight, self.bias, self.eps, stats)
+            if update:
+                if phase == "forward" and torch.is_grad_enabled():
+                    self._remat_stats.append((mean, var, counts))
+                with torch.no_grad():
+                    self.running_mean.lerp_(mean, factor)
+                    self.running_var.lerp_(var, factor)
             return y
         # the batch's mean and unbiased variance land in scratch buffers
         # (momentum 1); the running statistics then take the mean and the
@@ -193,35 +264,63 @@ class BatchNorm2d(nn.BatchNorm2d):
         var = torch.zeros_like(self.running_var)
         y = F.batch_norm(x, mean, var, self.weight, self.bias, True, 1.0,
                          self.eps)
-        with torch.no_grad():
-            self.running_mean.lerp_(mean, factor)
-            self.running_var.lerp_(var * ((n - 1) / n), factor)
+        if update:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, factor)
+                self.running_var.lerp_(var * ((n - 1) / n), factor)
         return y
 
 
 class ABN(nn.Module):
-    """BatchNorm + activation (`inplace_abn.ABN` semantics).
+    """BatchNorm (or GroupNorm) + activation (`inplace_abn.ABN` semantics).
 
     `activation='identity'` is the last norm of each residual block and of
     the projection shortcuts. Normalization and activation run in f32 (f64
-    under the f64 test dtype); the output is cast to `dtype`. Flax momentum
-    0.9 is torch momentum 0.1."""
+    under the f64 test dtype) and the output is cast to `dtype`; a bf16
+    `norm_dtype` rounds the normalized output to bf16 and activates in bf16
+    (flax's `norm_dtype`). Flax momentum 0.9 is torch momentum 0.1.
+
+    `norm_type='gn'` is GroupNorm with min(gn_groups, channels) groups, eps
+    1e-5 and wide parameters under `gn` (flax's `gn/scale`, `gn/bias`); it
+    has no running statistics."""
 
     def __init__(self, channels: int, activation: str = "leaky_relu",
                  activation_param: float = 0.01,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32,
+                 norm_dtype: Optional[torch.dtype] = None,
+                 norm_type: str = "bn", gn_groups: int = 16):
         super().__init__()
         if activation not in ("leaky_relu", "elu", "identity"):
             raise ValueError(f"unknown activation {activation!r}")
+        if norm_type not in ("bn", "gn"):
+            raise ValueError(f"unknown norm_type {norm_type!r}")
         self.activation = activation
         self.activation_param = activation_param
         self.dtype = dtype
-        self.norm_dtype = wide_dtype(dtype)
-        self.bn = BatchNorm2d(channels, eps=1e-5, momentum=0.1,
-                              dtype=self.norm_dtype)
+        self.wide = wide_dtype(dtype)
+        # the dtype the normalized output is rounded to (None: the wide one)
+        self.norm_dtype = norm_dtype
+        self.norm_type = norm_type
+        if norm_type == "gn":
+            self.gn = nn.GroupNorm(min(gn_groups, channels), channels,
+                                   eps=1e-5, dtype=self.wide)
+        else:
+            self.bn = BatchNorm2d(channels, eps=1e-5, momentum=0.1,
+                                  dtype=self.wide)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.bn(x.to(self.norm_dtype))
+        rounded = self.norm_dtype is not None and self.norm_dtype != self.wide
+        if self.norm_type == "gn":
+            y = self.gn(x.to(self.wide))
+        elif rounded and x.dtype == self.norm_dtype:
+            # torch's mixed-dtype batch_norm (CUDA, and the CPU's) takes the
+            # narrow input with wide weights and statistics, computes in
+            # f32 and returns the narrow output: flax's rounding point
+            y = self.bn(x)
+        else:
+            y = self.bn(x.to(self.wide))
+        if rounded:
+            y = y.to(self.norm_dtype)
         # in place: the norm's backward needs its input, not its output
         if self.activation == "leaky_relu":
             y = F.leaky_relu(y, self.activation_param, inplace=True)

@@ -86,13 +86,22 @@ class IncrementalSegmentationModel(nn.Module):
     training needs); a bf16 serving model keeps bf16 weights. float64 is a
     test-only `dtype` under which everything is f64.
 
+    The JAX model's execution options: `stem_s2d`, `remat`, `remat_early`
+    (models/resnet.py), `norm_dtype` (every ABN rounds its normalized
+    output to it; the JAX package's `bf16_norm`) and `norm_dtype_early`
+    (the stem and mod2 only; `bf16_norm_early`). None is the wide dtype.
+
     The JAX model's `fix_bn` is this module's eval mode with gradients on:
     `model.train(train and not fix_bn)`."""
 
     def __init__(self, classes: Sequence[int], backbone: str = "resnet101",
                  output_stride: int = 16, head_channels: int = 256,
                  pooling_size: int = 32, dtype: torch.dtype = torch.float32,
-                 param_dtype: Optional[torch.dtype] = None):
+                 param_dtype: Optional[torch.dtype] = None,
+                 stem_s2d: bool = False, remat: bool = False,
+                 remat_early: bool = False,
+                 norm_dtype: Optional[torch.dtype] = None,
+                 norm_dtype_early: Optional[torch.dtype] = None):
         super().__init__()
         self.classes = tuple(int(c) for c in classes)
         self.backbone = backbone
@@ -100,14 +109,18 @@ class IncrementalSegmentationModel(nn.Module):
         self.head_channels = head_channels
         self.pooling_size = pooling_size
         self.dtype = dtype
+        self.stem_s2d = stem_s2d
         self.cls_dtype = wide_dtype(dtype)
         structure, bottleneck = STRUCTURES[backbone]
         self.body = ResNet(structure, bottleneck, output_stride, dtype=dtype,
-                           param_dtype=param_dtype)
+                           param_dtype=param_dtype, stem_s2d=stem_s2d,
+                           remat=remat, remat_early=remat_early,
+                           norm_dtype=norm_dtype,
+                           norm_dtype_early=norm_dtype_early)
         self.head = DeeplabV3(self.body.out_channels, head_channels,
                               hidden_channels=256, out_stride=output_stride,
                               pooling_size=pooling_size, dtype=dtype,
-                              param_dtype=param_dtype)
+                              param_dtype=param_dtype, norm_dtype=norm_dtype)
         for i, c in enumerate(self.classes):
             self.add_module(f"cls_{i}",
                             nn.Conv2d(head_channels, c, 1, bias=True,
@@ -179,12 +192,21 @@ def make_model(cfg, classes: Optional[Sequence[int]] = None
     """The model of a Config (on the CPU, uninitialized beyond torch's
     defaults: `engine.state.build_train_state` draws the seeded init).
     `classes` defaults to the config's per-step classifier widths; the
-    donor of step t is `make_model(cfg, cfg.classes_per_step[:-1])`."""
+    donor of step t is `make_model(cfg, cfg.classes_per_step[:-1])`.
+
+    The execution options are read as the JAX `make_model` reads them:
+    `bf16_norm` rounds every ABN's output to bf16 under any compute dtype,
+    `bf16_norm_early` the stem's and mod2's under the bf16 policy only."""
+    dtype = TORCH_DTYPES[cfg.dtype]
     return IncrementalSegmentationModel(
         tuple(classes if classes is not None else cfg.classes_per_step),
         backbone=cfg.backbone, output_stride=cfg.output_stride,
         head_channels=cfg.head_channels, pooling_size=cfg.pooling,
-        dtype=TORCH_DTYPES[cfg.dtype])
+        dtype=dtype, stem_s2d=cfg.stem_s2d, remat=cfg.remat,
+        remat_early=cfg.remat_early,
+        norm_dtype=torch.bfloat16 if cfg.bf16_norm else None,
+        norm_dtype_early=(torch.bfloat16 if cfg.bf16_norm_early
+                          and dtype == torch.bfloat16 else None))
 
 
 # ---------------------------------------------------------------------------

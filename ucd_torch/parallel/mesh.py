@@ -6,7 +6,9 @@ over its `data` axis; the port runs one process a device, so the data
 axis is the process group and a process's shard of the batch is its
 contiguous slice, in rank order (what `jax.make_array_from_process_local_data`
 assembles from each process's rows). The 2-D data x model mesh
-(`make_mesh_2d`, `make_mesh_2d_hybrid`, `channel_sharding`) is not ported.
+(`make_mesh_2d`, `make_mesh_2d_hybrid`, `channel_sharding`) is not ported
+yet (ROADMAP A6b): it means something only across several cards. The
+config's `data_axis` is accepted and ignored, as in the JAX package.
 """
 
 from __future__ import annotations
