@@ -95,6 +95,20 @@ Phases (any failure exits non-zero, and no result line is printed):
         served; GroupNorm ABN and the off-path modules (v1 contrastive
         losses, Sinkhorn-Knopp, the non-local block) on the card against
         the CPU;
+     h. (run after 3g) two gloo ranks on the one card (gloo stages CUDA
+        tensors through the host; one card cannot host two NCCL ranks),
+        from 3b's variables with a fresh optimizer, at bf16 and in the
+        f32 twin: the 1-D data axis (4 images a rank) and the 1 x 2 data
+        x model mesh (ucd_torch/parallel/mesh.py: the wide convs' output
+        channels, >= 256, sharded over the two ranks, with their
+        BatchNorms, momentum and the donor's variables; all 8 images),
+        each held to the plain step by `check_dp_deviation` (the loss
+        terms, the update and the worst tensor's update within 3b's bf16
+        bound or twice a rounding-only change, cuDNN off); the mesh's
+        replicated tensors the same bits on both ranks, B1-B5 once in its
+        bf16 step (counts set to 0 just before, read just after); each
+        rank's bytes of parameters + momentum + donor against the plain
+        step's, peak memory, seconds a step (recorded, not judged);
   4. time each kernel three ways (its own device time from a
      torch.profiler window, CUDA events around the wrapper calls, the
      host's enqueue time a call) beside its plain version, one library
@@ -115,17 +129,17 @@ failing capture, the loop at steps_per_call 1 and 4), `{"families": ...}`,
 `{"dp": ...}` (phase 3f), `{"experiment": ...}` (phase 3c's seconds per
 step, epoch img/s, loader
 and checkpoint times, launches and peak memory, beside phase 4's raw UCD
-step img/s) and `{"options": ...}` (phase 3g). The last three lines of
-stdout are the `{"kernels": [...]}` record
+step img/s), `{"options": ...}` (phase 3g) and `{"mesh2d": ...}` (phase
+3h). The last three lines of stdout are the `{"kernels": [...]}` record
 (each row's `ms` / `kernel_ms` the device time, `wrapper_ms` the events',
 `launches_experiment` its launches in phase 3c, `launches_options` in
-3g's option steps), the
+3g's option steps, `launches_mesh2d` in 3h's bf16 mesh step), the
 card's name and power limit (nvidia-smi), and `{"ok": true, "device": ...}`.
 `--profile DIR` also writes torch.profiler tables of predict_labels and of
 the train step there. `--only kernels` stops after phase 2, `--only dp`
-runs phases 1, 3b and 3f, `--only options` phases 1, 3b and 3g; none
-prints a result (for bringing a kernel, the data-parallel path or the
-options up).
+runs phases 1, 3b and 3f, `--only options` phases 1, 3b and 3g,
+`--only mesh2d` phases 1, 3b and 3h; none prints a result (for bringing a
+kernel, the data-parallel path, the options or the mesh up).
 """
 
 from __future__ import annotations
@@ -1632,13 +1646,14 @@ def dp_deviation(before, ref, other) -> dict:
     """How far `other` (metrics, state after a step from `before`) is from
     `ref`: the loss terms' largest relative difference; each parameter
     update's largest difference against the update's largest entry (the
-    worst tensor), and over all parameters, the difference's norm against
-    the update's; whether the bits are equal. The frozen `cls_0` must be
+    worst tensor, and its name), and over all parameters, the difference's
+    norm against the update's; whether the bits are equal. The frozen `cls_0` must be
     unchanged on both sides."""
     (rm, ra), (om, oa) = ref, other
     terms = max(abs(om[k] - rm[k]) / abs(rm[k])
                 for k in ("loss", "lkd", "l_con", "loss_tot"))
     worst, num, den, n_params, equal = 0.0, 0.0, 0.0, 0, True
+    worst_name = None
     for k, v in ra.items():
         equal = equal and torch.equal(v, oa[k])
         if not k.startswith("model.") or not v.is_floating_point() or \
@@ -1649,12 +1664,15 @@ def dp_deviation(before, ref, other) -> dict:
             assert not up_r.any() and not up_o.any(), k
             continue
         n_params += 1
-        worst = max(worst, float((up_o - up_r).abs().max())
-                    / (float(up_r.abs().max()) + 1e-30))
+        err = float((up_o - up_r).abs().max()) / (
+            float(up_r.abs().max()) + 1e-30)
+        if err > worst:
+            worst, worst_name = err, k
         num += float((up_o - up_r).norm()) ** 2
         den += float(up_r.norm()) ** 2
     assert den > 0, "the reference step updated no parameter"
     return {"terms_rel_err": terms, "worst_update_err": worst,
+            "worst_tensor": worst_name,
             "update_rel_err": (num / max(den, 1e-300)) ** 0.5,
             "n_params": n_params, "bits_equal": equal}
 
@@ -1736,6 +1754,21 @@ def f32_twin(tr, dev):
     with torch.no_grad():
         model.load_state_dict(tr["model"].state_dict())
     return cfg, model, model_old, state, old_vars
+
+
+def f64_twin(twin, dev):
+    """An f32 twin (`f32_twin`) at float64, with the dense losses (no
+    kernel): (cfg, model, donor, state, donor variables). Its plain step
+    is the reference that tells an f32 step's rounding from a fault."""
+    cfg, model, _, _, old_vars = twin
+    cfg = dataclasses.replace(cfg, dtype="float64", fused_loss=False,
+                              use_pallas_contrastive=False)
+    m64, old64, state, vars64 = build_train(
+        dev, cfg, {k: v.double() if v.is_floating_point() else v
+                   for k, v in old_vars.items()})
+    with torch.no_grad():
+        m64.load_state_dict(model.state_dict())
+    return cfg, m64, old64, state, vars64
 
 
 def phase_dp(dev, tr, where) -> dict:
@@ -2781,6 +2814,285 @@ def phase_exec_options(dev, tr, where) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3h: two gloo ranks on one card: the 1-D data axis and the 1 x 2 mesh
+# ---------------------------------------------------------------------------
+
+MESH2D_MIN_SIZE = 256      # the JAX package's `channel_sharding` default
+MESH2D_TIMED_STEPS = 2     # host-staged (gloo) steps timed a rank
+
+
+def _cpu(tensors: dict) -> dict:
+    return {k: v.detach().cpu() for k, v in tensors.items()}
+
+
+def state_bytes(state, model, old_vars, shell=None) -> int:
+    """Bytes of the parameters, the momentum and the donor's variables,
+    plus what the donor `shell` still holds on a device (on the 2-D mesh,
+    once the step is built: nothing, it lies on the meta device)."""
+    tensors = [*model.parameters(), *state.opt_state["trace"].values(),
+               *old_vars.values()]
+    if shell is not None:
+        tensors += [t for t in [*shell.parameters(), *shell.buffers()]
+                    if t.device.type != "meta"]
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def mesh2d_rank(rank, rdzv, work, device):
+    """One of phase 3h's two gloo ranks on `device`, cuda:0 (gloo stages
+    CUDA tensors through the host; one card cannot host two NCCL ranks;
+    "cpu" rehearses the phase at a small size). For
+    bf16 and then the f32 twin, from the start the parent saved: (a) the
+    1-D step on this rank's 4 images; (b) the same start put on the 1 x 2
+    mesh (`shard_train_state`, min_size 256) and one step on all 8
+    images, the kernels' launch counts set to 0 just before it and read
+    just after; at bf16, MESH2D_TIMED_STEPS more steps timed. Saves each
+    side's metrics and state (rank 0's 1-D state; each rank's shards)."""
+    from ucd_torch.engine.state import shard_train_state
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(dev)
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.distributed.init_process_group("gloo", init_method=rdzv,
+                                         world_size=2, rank=rank)
+    try:
+        start = torch.load(os.path.join(work, "start.pt"),
+                           map_location=dev, weights_only=False)
+        batch = start["batch"]
+        mesh = P.make_mesh_2d(1, 2)
+        out = {"place": (mesh.data_index, mesh.model_index)}
+        for dtype in ("bfloat16", "float32"):
+            cfg = dataclasses.replace(start["cfg"], dtype=dtype)
+            model = make_model(cfg)
+            model.init_weights = lambda generator: model  # loaded below
+            model_old = make_model(cfg, cfg.classes_per_step[:-1]).to(
+                device=dev, memory_format=torch.channels_last)
+            state, old_vars = build_train_state(
+                cfg, model, torch.Generator(), total_iters=100,
+                prev_model_state=start[dtype]["old"], device=dev)
+            with torch.no_grad():
+                model.load_state_dict(start[dtype]["model"])
+            before = snapshot(state, model)
+            step = make_train_step(cfg, model, model_old, total_iters=100,
+                                   device=dev)
+            t0 = time.perf_counter()
+            _, m = step(state, P.shard_batch(batch), old_vars)
+            _sync(dev)
+            side = {"step_s_1d": time.perf_counter() - t0,
+                    "metrics_1d": {k: float(v) for k, v in m.items()}}
+            if rank == 0:
+                side["after_1d"] = _cpu(snapshot(state, model))
+            restore(state, model, before)
+            del before
+            state, old_vars = shard_train_state(state, old_vars, mesh,
+                                                MESH2D_MIN_SIZE)
+            step = make_train_step(cfg, model, model_old, total_iters=100,
+                                   device=dev)
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+            zero_kernel_counts()
+            _, m = step(state, batch, old_vars)
+            counts = kernel_counts()
+            _sync(dev)
+            side.update(
+                launches=counts, sharded=sorted(model.sharded),
+                metrics_2d={k: float(v) for k, v in m.items()},
+                after_2d=_cpu(snapshot(state, model)),
+                peak_gb=(torch.cuda.max_memory_allocated() / 1e9
+                         if dev.type == "cuda" else None),
+                state_bytes=state_bytes(state, model, old_vars, model_old))
+            if dtype == "bfloat16":
+                times = []
+                for _ in range(MESH2D_TIMED_STEPS):
+                    _sync(dev)
+                    t0 = time.perf_counter()
+                    step(state, batch, old_vars)
+                    _sync(dev)
+                    times.append(time.perf_counter() - t0)
+                side["step_s_2d"] = times
+            out[dtype] = side
+            del model, model_old, state, old_vars, step
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+        torch.save(out, os.path.join(work, f"rank{rank}.pt"))
+    finally:
+        torch.distributed.destroy_process_group()
+
+
+def unshard_snapshot(snaps, like, min_size) -> dict:
+    """The full `snapshot` of a model group's shard snapshots (`snaps[i]`
+    model rank i's): the model's and the momentum's tensors put back
+    together (`unshard_state`; `like` is the model's full state dict), the
+    counts model rank 0's."""
+    from ucd_torch.engine.state import unshard_state
+    out = dict(snaps[0])
+    for prefix in ("model.", "trace."):
+        names = [k[len(prefix):] for k in out if k.startswith(prefix)]
+        full = unshard_state([{n: s[prefix + n] for n in names}
+                              for s in snaps],
+                             {n: like[n] for n in names}, min_size)
+        out.update({prefix + n: v for n, v in full.items()})
+    return out
+
+
+def plain_and_rounding(cfg, model, model_old, state, old_vars, batch):
+    """The plain step from the current state, and the same with cuDNN off
+    (a rounding-only change); the state is restored after each:
+    (metrics, state after) twice, and the plain step's peak GB."""
+    dev = next(model.parameters()).device
+    snap = snapshot(state, model)
+    step = make_train_step(cfg, model, model_old, total_iters=100,
+                           device=dev)
+    out, peak = [], None
+    for cudnn in (True, False):
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        # cuDNN off only for the second step: `cudnn.flags` would also turn
+        # TF32 back on for the first
+        with torch.backends.cudnn.flags(enabled=False) if not cudnn \
+                else contextlib.nullcontext():
+            _, m = step(state, batch, old_vars)
+            _sync(dev)
+        out.append(({k: float(v) for k, v in m.items()},
+                    snapshot(state, model)))
+        if cudnn and dev.type == "cuda":
+            peak = torch.cuda.max_memory_allocated() / 1e9
+        restore(state, model, snap)
+    return snap, out[0], out[1], peak
+
+
+def phase_mesh2d(dev, tr, where) -> dict:
+    """Phase 3h: two gloo ranks on cuda:0 (`mesh2d_rank`), from phase 3b's
+    model and variables (VOC 15-5s step 1, ResNet-101, batch 8, 512x512)
+    with a fresh schedule, at bf16 and in the f32 twin: (a) the 1-D data
+    axis, 4 images a rank, and (b) the 1 x 2 data x model mesh, the wide
+    convs' output channels sharded over the two ranks (min_size 256), on
+    all 8 images. Each is held to the plain step by `check_dp_deviation`
+    (the loss terms, the update overall and the worst tensor's, within
+    DP_VS_PLAIN or twice a rounding-only change); the mesh's replicated
+    tensors and momentum must have the same bits on both ranks, B1-B5
+    must launch once in its bf16 step, and each rank's bytes of
+    parameters + momentum + donor, peak memory and seconds a step
+    (host-staged, recorded, not judged) are reported."""
+    import torch.multiprocessing as mp
+
+    cfg, model, model_old = tr["cfg"], tr["model"], tr["model_old"]
+    state, old_vars = tr["state"], tr["old_vars"]
+    batch = train_batches(1, BATCH, SIZE, cfg.tot_classes, seed=170)[0]
+    # a fresh optimizer on 3b's variables, as the ranks build it (and as
+    # the f32 twin has); 3b's state is restored at the end
+    entry = snapshot(state, model)
+    with torch.no_grad():
+        opt = state.opt_state
+        for t in [*opt["trace"].values(), opt["count"], opt["nonfinite"],
+                  state.step]:
+            t.zero_()
+    ref = {"bfloat16": plain_and_rounding(cfg, model, model_old, state,
+                                          old_vars, batch)}
+    plain_bytes = state_bytes(state, model, old_vars)
+    start = {"bfloat16": {"model": _cpu(model.state_dict()),
+                          "old": _cpu(old_vars)}, "batch": batch,
+             "cfg": cfg}
+    twin = f32_twin(tr, dev)
+    ref["float32"] = plain_and_rounding(*twin, batch)
+    start["float32"] = {"model": _cpu(twin[1].state_dict()),
+                        "old": _cpu(twin[4])}
+    del twin
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+    out = {"card": where, "min_size": MESH2D_MIN_SIZE,
+           "plain_state_bytes": plain_bytes,
+           "plain_peak_gb": ref["bfloat16"][3]}
+    with tempfile.TemporaryDirectory() as work:
+        torch.save(start, os.path.join(work, "start.pt"))
+        del start
+        t0 = time.perf_counter()
+        mp.spawn(mesh2d_rank, args=(f"file://{work}/rendezvous", work,
+                                    str(dev)), nprocs=2, join=True)
+        out["ranks_s"] = time.perf_counter() - t0
+        ranks = [torch.load(os.path.join(work, f"rank{r}.pt"),
+                            map_location=dev, weights_only=False)
+                 for r in (0, 1)]
+    assert [r["place"] for r in ranks] == [(0, 0), (0, 1)], ranks
+    like = model.state_dict()
+    for dtype in ("bfloat16", "float32"):
+        snap, plain, alt, _ = ref[dtype]
+        r0, r1 = ranks[0][dtype], ranks[1][dtype]
+        res = {"rounding_only": dp_deviation(snap, plain, alt)}
+        res["1d_vs_plain"] = dp_deviation(
+            snap, plain, (r0["metrics_1d"], r0["after_1d"]))
+        check_dp_deviation(res["1d_vs_plain"], res["rounding_only"],
+                           f"1-D two ranks on one card, {dtype}")
+        sharded = set(r0["sharded"])
+        assert sharded == set(r1["sharded"])
+        after = unshard_snapshot([r0["after_2d"], r1["after_2d"]], like,
+                                 MESH2D_MIN_SIZE)
+        assert r0["metrics_2d"] == r1["metrics_2d"]
+        res["2d_vs_plain"] = dp_deviation(snap, plain,
+                                          (r0["metrics_2d"], after))
+        check_dp_deviation(res["2d_vs_plain"], res["rounding_only"],
+                           f"1 x 2 mesh, {dtype}")
+        replicated = [k for k in r0["after_2d"]
+                      if k.split(".", 1)[-1] not in sharded]
+        differ = [k for k in replicated
+                  if not torch.equal(r0["after_2d"][k], r1["after_2d"][k])]
+        assert not differ, f"replicated tensors differ across the model " \
+            f"group ({dtype}): {differ[:5]}"
+        res.update(replicated_tensors_bit_equal=len(replicated),
+                   sharded_tensors=len(sharded),
+                   launches=r0["launches"],
+                   state_bytes=[r["state_bytes"] for r in (r0, r1)],
+                   peak_gb=[r["peak_gb"] for r in (r0, r1)],
+                   step_s_1d=[r["step_s_1d"] for r in (r0, r1)],
+                   metrics_2d=r0["metrics_2d"],
+                   metrics_plain=plain[0])
+        if dtype == "bfloat16":
+            res["step_s_2d"] = [r["step_s_2d"] for r in (r0, r1)]
+            for r in (r0, r1) if dev.type == "cuda" else ():
+                for key in TRAIN_COUNTERS + ("contrastive_pass1_mma",
+                                             "contrastive_pass2_mma",
+                                             "contrastive_bwd_mma"):
+                    assert r["launches"][key] == 1, (key, r["launches"])
+                assert r["launches"]["fused_argmax"] == 0, r["launches"]
+        out[dtype] = res
+    b, f = out["bfloat16"], out["float32"]
+    log(f"[mesh2d] two gloo ranks on one card, UCD VOC 15-5s step 1, "
+        f"{cfg.backbone}, batch {BATCH}, {SIZE}x{SIZE}, on {where}; against the "
+        f"plain step (terms, update, worst tensor): 1-D bf16 "
+        + ", ".join(f"{b['1d_vs_plain'][k]:.3g}" for k in (
+            "terms_rel_err", "update_rel_err", "worst_update_err"))
+        + ", f32 " + ", ".join(f"{f['1d_vs_plain'][k]:.3g}" for k in (
+            "terms_rel_err", "update_rel_err", "worst_update_err"))
+        + "; 1 x 2 mesh bf16 " + ", ".join(
+            f"{b['2d_vs_plain'][k]:.3g}" for k in (
+                "terms_rel_err", "update_rel_err", "worst_update_err"))
+        + ", f32 " + ", ".join(f"{f['2d_vs_plain'][k]:.3g}" for k in (
+            "terms_rel_err", "update_rel_err", "worst_update_err"))
+        + "; rounding-only bf16 " + ", ".join(
+            f"{b['rounding_only'][k]:.3g}" for k in (
+                "terms_rel_err", "update_rel_err", "worst_update_err"))
+        + ", f32 " + ", ".join(f"{f['rounding_only'][k]:.3g}" for k in (
+            "terms_rel_err", "update_rel_err", "worst_update_err"))
+        + f"; {b['sharded_tensors']} sharded tensors, "
+        f"{b['replicated_tensors_bit_equal']} replicated ones bit-equal on "
+        f"both ranks; state bytes a rank {b['state_bytes']} against "
+        f"{plain_bytes} plain; peak GB {b['peak_gb']} (plain "
+        f"{out['plain_peak_gb']}); s a step 1-D {b['step_s_1d']}, 2-D "
+        f"{b['step_s_2d']}; launches {json.dumps(b['launches'])}; ranks "
+        f"{out['ranks_s']:.1f} s")
+    restore(state, model, entry)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 4: timings
 # ---------------------------------------------------------------------------
 
@@ -3386,11 +3698,11 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also write torch.profiler tables of "
                          "predict_labels and of the train step into DIR")
-    ap.add_argument("--only", choices=["kernels", "dp", "options"],
+    ap.add_argument("--only", choices=["kernels", "dp", "options", "mesh2d"],
                     default=None,
                     help="kernels: stop after the kernel checks; dp / "
-                         "options: build, then phases 3b and 3f / 3g only "
-                         "(prints no result)")
+                         "options / mesh2d: build, then phases 3b and 3f / "
+                         "3g / 3h only (prints no result)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the "
@@ -3429,6 +3741,11 @@ def main(argv=None) -> int:
         options = phase_exec_options(dev, phase_train(dev), where)
         log(json.dumps({"options": {"card": where, **options}}))
         lap("3b + 3g")
+        return 0
+    if args.only == "mesh2d":
+        mesh2d = phase_mesh2d(dev, phase_train(dev), where)
+        log(json.dumps({"mesh2d": mesh2d}))
+        lap("3b + 3h")
         return 0
 
     # phase 2: every kernel against its plain version
@@ -3495,6 +3812,11 @@ def main(argv=None) -> int:
     # off-path modules
     options = phase_exec_options(dev, trained, where)
     lap("3g host ops, execution options, off-path modules")
+
+    # phase 3h: two gloo ranks on one card, the 1-D data axis and the 1 x 2
+    # data x model mesh (the ranks set the counts to 0 and read them)
+    mesh2d = phase_mesh2d(dev, trained, where)
+    lap("3h two ranks on one card: 1-D and the 1 x 2 mesh")
     log(json.dumps({"bundle": {
         "card": where, "bits": bundled, "timing": captured,
         "capture_failure": failure,
@@ -3509,7 +3831,9 @@ def main(argv=None) -> int:
         "raw_ucd_step_img_per_s_runs": training["img_per_s_runs"],
         "steady_state": loop}}))
     log(json.dumps({"options": {"card": where, **options}}))
+    log(json.dumps({"mesh2d": mesh2d}))
     exp_counts = experiment["launches"]
+    mesh_counts = mesh2d["bfloat16"]["launches"]
     opt_counts = options["launches"]
 
     kernels = [{
@@ -3523,6 +3847,7 @@ def main(argv=None) -> int:
         "launches_experiment": exp_counts["fused_argmax"],
         "launches_dp": dp["launches"]["fused_argmax"],
         "launches_options": opt_counts["fused_argmax"],
+        "launches_mesh2d": mesh_counts["fused_argmax"],
         "max_abs_err": err["max_abs_err"],
         "mismatch_rate": err["mismatch_rate"],
         **timing}]
@@ -3544,6 +3869,7 @@ def main(argv=None) -> int:
             "launches_dp": dp["launches"][name],
             "launches_dp_bundle": dp["bundle"]["launches_bundle"][name],
             "launches_options": opt_counts[name],
+            "launches_mesh2d": mesh_counts[name],
             "max_abs_err": loss_err[err_key],
             "max_rel_grad_err": loss_err["grad_rel_err"],
             **t})
@@ -3568,6 +3894,7 @@ def main(argv=None) -> int:
             "launches_dp": dp["launches"][name],
             "launches_dp_bundle": dp["bundle"]["launches_bundle"][name],
             "launches_options": opt_counts[name],
+            "launches_mesh2d": mesh_counts[name],
             "max_abs_err": con_err[abs_key], "max_rel_err": con_err[rel_key],
             "mode": "bf16", **t["bf16"],
             **{f"{k}_f32": t["f32"][k] for k in (

@@ -9,21 +9,111 @@ Counterpart of ucd_tpu/engine/state.py:
   * fresh optimizer state and, under a regularizer, its state from the
     previous step's export; step 0. Every counter is a tensor on the
     device (engine/train.py);
-  * inside a process group, every process's state is process 0's.
+  * inside a process group, every process's state is process 0's;
+  * on a 2-D data x model mesh (ucd_torch/parallel/mesh.py), each rank
+    then keeps its channel shard of every wide tensor (`channel_sharding`)
+    of the model, the momentum and the donor's variables, as the JAX
+    package's `channel_sharding` places them (`shard_state`;
+    `unshard_state` puts the shards of a model group back together).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Any, Dict, Mapping, Optional, Sequence
 
 import torch
 
 from .. import parallel as P
 from ..config import Config
 from ..device import resolve_device
+from ..models.deeplab import MAP_BN_GROUPS
+from ..models.layers import use_mesh
 from ..models.segmentation import init_new_classifier, merge_old_params
 from ..ops import regularizers as R
 from .train import TrainState, make_optimizer
+
+
+def shard_rows(name: str, size: int, n_model: int, model_index: int,
+               min_size: int = 256) -> torch.Tensor:
+    """The rows (output channels) of the tensor `name`, `size` rows long,
+    that model rank `model_index` of `n_model` holds: a contiguous slice,
+    or, for the ASPP's `map_bn` over sharded branches, a slice of each of
+    its MAP_BN_GROUPS groups (models/deeplab.py)."""
+    groups = 1
+    if "map_bn" in name.split("."):
+        branch = size // MAP_BN_GROUPS
+        if branch >= min_size and branch % n_model == 0:
+            groups = MAP_BN_GROUPS
+    rows = torch.arange(size).view(groups, n_model, -1)
+    return rows[:, model_index].reshape(-1)
+
+
+def shard_state(sd: Mapping[str, torch.Tensor], n_model: int,
+                model_index: int, min_size: int = 256
+                ) -> Dict[str, torch.Tensor]:
+    """Model rank `model_index`'s part of the full state dict `sd` (a
+    model's, the momentum's or the donor's): its rows of every tensor
+    `channel_sharding` shards (copies, in the tensor's memory format), the
+    replicated ones as they are."""
+    out = {}
+    for name, dim in P.channel_sharding(n_model, sd, min_size).items():
+        t = sd[name]
+        if dim is None:
+            out[name] = t
+            continue
+        rows = shard_rows(name, t.shape[0], n_model, model_index, min_size)
+        first, n = int(rows[0]), len(rows)
+        # a contiguous slice keeps the tensor's memory format
+        if int(rows[-1]) == first + n - 1:
+            part = t.detach().narrow(0, first, n)
+        else:
+            part = t.detach().index_select(0, rows.to(t.device))
+        out[name] = part.clone(memory_format=torch.preserve_format)
+    return out
+
+
+def unshard_state(shards: Sequence[Mapping[str, torch.Tensor]],
+                  like: Mapping[str, Any], min_size: int = 256
+                  ) -> Dict[str, torch.Tensor]:
+    """The full state dict of a model group's shards (`shards[i]` model
+    rank i's, from `shard_state`); `like` gives the full shapes (tensors or
+    shapes by name). Replicated tensors are model rank 0's."""
+    n_model = len(shards)
+    out = {}
+    for name, dim in P.channel_sharding(n_model, like, min_size).items():
+        if dim is None:
+            out[name] = shards[0][name]
+            continue
+        first = shards[0][name]
+        size = first.shape[0] * n_model
+        full = first.new_empty((size,) + tuple(first.shape[1:]))
+        for i, part in enumerate(shards):
+            rows = shard_rows(name, size, n_model, i, min_size)
+            full[rows.to(full.device)] = part[name]
+        out[name] = full
+    return out
+
+
+@torch.no_grad()
+def shard_module_(model: torch.nn.Module, mesh, min_size: int = 256):
+    """Replace each wide parameter and buffer of `model` by this rank's
+    shard (`shard_state`) and put the model on `mesh` (models/layers.py
+    `use_mesh`). `model.sharded` names the sharded tensors."""
+    full = dict(model.state_dict(keep_vars=True))
+    shards = shard_state(full, mesh.n_model, mesh.model_index, min_size)
+    sharded = set()
+    for name, t in shards.items():
+        if t is full[name]:
+            continue
+        sharded.add(name)
+        owner, _, attr = name.rpartition(".")
+        mod = model.get_submodule(owner)
+        if attr in mod._parameters:
+            mod._parameters[attr].data = t
+        else:
+            mod._buffers[attr] = t
+    model.sharded = frozenset(sharded)
+    return use_mesh(model, mesh)
 
 
 def _on_device(sd: Mapping[str, torch.Tensor], like: Mapping[str,
@@ -48,7 +138,7 @@ def build_train_state(cfg: Config, model, generator: torch.Generator,
                       prev_model_state: Optional[Mapping] = None,
                       prev_reg_saved: Optional[Mapping] = None,
                       pretrained_body: Optional[Mapping] = None,
-                      device=None):
+                      device=None, mesh=None, min_size: int = 256):
     """Build (state, old_vars); `model` is initialized in place and moved
     to `device` (CUDA unless the caller passes one).
 
@@ -59,7 +149,11 @@ def build_train_state(cfg: Config, model, generator: torch.Generator,
       donor = the previous step's variables verbatim (copied to `device`);
     * under `cfg.regularizer`, its state (ops/regularizers.py) from
       `prev_reg_saved`, the previous step's `export_state` (None: no
-      penalty), anchored at the donor's parameters.
+      penalty), anchored at the donor's parameters;
+    * on a 2-D `mesh` (parallel/mesh.py `make_mesh_2d`): the full state
+      as above, then this rank's channel shards of the model, the donor's
+      variables and the momentum (`channel_sharding` at `min_size`, the
+      JAX package's default 256). A regularizer is refused there.
     """
     dev = resolve_device(device)
     model.init_weights(generator)
@@ -97,4 +191,25 @@ def build_train_state(cfg: Config, model, generator: torch.Generator,
     P.broadcast_([*model.parameters(), *model.buffers(),
                   *R.state_tensors(reg_state),
                   *(old_vars.values() if old_vars is not None else ())])
+    if mesh is not None:
+        state, old_vars = shard_train_state(state, old_vars, mesh, min_size)
+    return state, old_vars
+
+
+def shard_train_state(state: TrainState, old_vars: Optional[Mapping], mesh,
+                      min_size: int = 256):
+    """Put a full train state on the 2-D `mesh`: this rank keeps its shards
+    of the model (`shard_module_`), of the momentum and of the donor's
+    variables. Returns (state, old_vars); build the train step after. A
+    regularizer's state is refused."""
+    if state.reg_state is not None:
+        raise NotImplementedError(
+            "the regularizers (EWC / PI / RW) do not run on the 2-D mesh "
+            "yet")
+    shard_module_(state.model, mesh, min_size)
+    state.opt_state["trace"] = shard_state(
+        state.opt_state["trace"], mesh.n_model, mesh.model_index, min_size)
+    if old_vars is not None:
+        old_vars = shard_state(old_vars, mesh.n_model, mesh.model_index,
+                               min_size)
     return state, old_vars

@@ -46,7 +46,7 @@ from torch.func import functional_call
 from .. import parallel as P
 from ..config import Config, unsupported_fields
 from ..device import resolve_device
-from ..models.layers import wide_dtype
+from ..models.layers import use_mesh, wide_dtype
 from ..models.segmentation import resize_bilinear, trainable_mask
 from ..ops import fused_eval as FE
 from ..ops import fused_loss as FL
@@ -229,12 +229,14 @@ def _lde(feats, feats_old):
 
 
 def compute_train_losses(cfg: Config, outputs, feats, labels,
-                         outputs_old=None, feats_old=None):
+                         outputs_old=None, feats_old=None, data_group=None):
     """All loss terms of the hot loop. `feats` / `feats_old` hold NHWC
     tensors ("sem", and the attended "body" / "pre_logits" where `loss_de`
     or the contrastive term asks for them); `feats_old` is None without a
     donor. `outputs` / `outputs_old` are the full-res NHWC logits or None:
-    the dense branches upsample `sem` themselves when they are missing."""
+    the dense branches upsample `sem` themselves when they are missing.
+    `data_group` is the process group the batch is split over (None: the
+    world; the data group on a 2-D mesh)."""
     has_old = feats_old is not None
     icarl_combined = cfg.icarl and not cfg.icarl_disjoint and has_old
     icarl_only_dist = cfg.icarl and cfg.icarl_disjoint and has_old
@@ -281,6 +283,7 @@ def compute_train_losses(cfg: Config, outputs, feats, labels,
             # f32 (and the f64 test dtype) keep the exact path
             kernel_dtype=(torch.bfloat16 if cfg.dtype == "bfloat16"
                           else torch.float32),
+            group=data_group,
         ) * cfg.contrastive_weight
     terms["l_con"] = l_con
 
@@ -312,7 +315,10 @@ def _step_device(device, model, model_old) -> torch.device:
     """The device a step runs on: CUDA unless the caller names one. The
     model must already be there (`build_train_state` moves it, and the
     optimizer state lies beside it), so a model elsewhere raises; the
-    donor module is only a shell for `old_vars` and is moved."""
+    donor module is only a shell for `old_vars` and is moved: to `device`,
+    or, beside a model on the 2-D mesh, whose `old_vars` are this rank's
+    shards of every donor tensor, to the meta device, where it holds no
+    memory."""
     dev = resolve_device(device)
     for p in model.parameters():
         if p.device.type != dev.type or (
@@ -322,7 +328,9 @@ def _step_device(device, model, model_old) -> torch.device:
                 f"move the model there (build_train_state does) or pass "
                 f"device={str(p.device.type)!r}")
     if model_old is not None:
-        model_old.to(device=dev, memory_format=torch.channels_last)
+        model_old.to(device="meta" if getattr(model, "mesh", None)
+                     is not None else dev,
+                     memory_format=torch.channels_last)
     return dev
 
 
@@ -357,6 +365,15 @@ def _make_core(cfg: Config, model, model_old, total_iters: int,
     has_old = model_old is not None
     # the contrastive term reads the attended pre_logits of both models
     need_att = (cfg.loss_de > 0 or cfg.contrastive) and has_old
+    mesh = getattr(model, "mesh", None)
+    data_group = None
+    if mesh is not None:
+        if cfg.nan_guard:
+            raise NotImplementedError(
+                "nan_guard does not run on the 2-D mesh yet")
+        data_group = mesh.data_group
+        if has_old:
+            use_mesh(model_old, mesh)
 
     mask = trainable_mask(
         [n for n, _ in model.named_parameters()], step_idx,
@@ -387,7 +404,7 @@ def _make_core(cfg: Config, model, model_old, total_iters: int,
         feats = _nhwc(model.forward_feats(x, attention=need_att))
         mark("forward")
         terms = compute_train_losses(cfg, None, feats, labels, None,
-                                     feats_old)
+                                     feats_old, data_group)
         mark("losses")
         params = {n: p for n, p in model.named_parameters()
                   if p.requires_grad}
@@ -401,7 +418,16 @@ def _make_core(cfg: Config, model, model_old, total_iters: int,
         # regularizer's accumulators read it (the JAX step's EWC/PI/RW see
         # the global gradient) and before nan_guard's finite test (every
         # process then decides alike)
-        if P.is_distributed():
+        if mesh is not None:
+            # a shard's gradient over the ranks that hold that shard; a
+            # replicated tensor's, the same on every model rank, over the
+            # world, which leaves its bits equal across a model group
+            P.all_reduce_mean_([g for n, g in grads.items()
+                                if n in model.sharded], data_group)
+            P.all_reduce_mean_([g for n, g in grads.items()
+                                if n not in model.sharded])
+            mark("all_reduce")
+        elif P.is_distributed():
             P.all_reduce_mean_(list(grads.values()))
             mark("all_reduce")
         # the global batch's loss terms: every per-pixel mean divides by
@@ -411,7 +437,7 @@ def _make_core(cfg: Config, model, model_old, total_iters: int,
         # already the global batch's on every process
         metrics = P.reduce_metrics(
             {k: v.detach() for k, v in terms.items()},
-            [k for k in terms if k != "l_con"])
+            [k for k in terms if k != "l_con"], data_group)
         metrics["l_reg"] = torch.zeros_like(metrics["loss_tot"])
         if state.reg_state is not None:
             # accumulators from the main loss's gradients, then the
@@ -460,7 +486,11 @@ def make_train_step(cfg: Config, model, model_old, total_iters: int,
     step computes on the global batch, up to reduction order: train-mode
     BatchNorm statistics, the contrastive term, the gradient and the loss
     metrics are the global batch's, and every process applies the same
-    update."""
+    update. On a 2-D mesh (`model` sharded by `build_train_state(...,
+    mesh=...)`) `batch` is the shard of the rank's data group
+    (`shard_batch(batch, mesh.data_index, mesh.n_data)`), every rank
+    applies the update of its own shards, and the donor shell `model_old`
+    is put on the mesh too, its own tensors freed (the meta device)."""
     dev = _step_device(device, model, model_old)
     mark = mark or _no_mark
     core = _make_core(cfg, model, model_old, total_iters, step_idx)
@@ -560,7 +590,8 @@ def make_train_bundle(cfg: Config, model, model_old, total_iters: int,
     and replays the graph: one host dispatch per step instead of some
     thousands. Inside a process group the graph holds the step's NCCL
     collectives (the communicator exists from `init_group` on, and slot
-    0 has run each collective eagerly). A failed capture raises. The graph
+    0 has run each collective eagerly, on a 2-D mesh over each subgroup,
+    whose communicator that run makes if `new_group` did not). A failed capture raises. The graph
     reads the state where it was at the capture, so state tensors must be
     updated in place (`load_state_dict`, `copy_`), never rebound: the
     bundle raises if they were. Eager steps between calls are fine. On the CPU it runs the step
@@ -632,8 +663,13 @@ def make_eval_step(cfg: Config, model, model_old=None, device=None):
     (hist, {"loss", "lkd", "lde"}, preds). `variables` is a state_dict to
     evaluate `model` on, or None for the model's own tensors. Inside a
     process group `batch` is this process's shard: the confusion counts
-    and the losses are the global batch's (`preds` this process's)."""
+    and the losses are the global batch's (`preds` this process's). A
+    model on a 2-D mesh is refused: the validate step stays off it, as in
+    the JAX package."""
     _check_cfg(cfg)
+    if getattr(model, "mesh", None) is not None:
+        raise NotImplementedError(
+            "the validate step does not run on the 2-D mesh")
     dev = _step_device(device, model, model_old)
     has_old = model_old is not None
     n_classes = cfg.tot_classes

@@ -9,6 +9,16 @@ sliding average pool replicate-padded back to the map size. "Training" is
 the module's own mode: a model trained under `fix_bn` runs its forward in
 eval mode (running statistics, no statistics update, sliding pool) with
 gradients still flowing, as the JAX model does with `train and not fix_bn`.
+
+On the 2-D mesh (`mesh`, models/layers.py `use_mesh`) each sharded map
+conv gives this rank a slice of its branch, so the rank's concatenation
+holds the four branches' slices: `map_bn`'s shard is those channels
+(`MAP_BN_GROUPS` groups of the unsharded concatenation, a slice of each;
+engine/state.py `shard_rows`), and the gathered concatenation, in rank
+order, meets `red_conv`'s weight with its input channels permuted to
+match. Where only `map_bn` is sharded, the whole concatenation is split.
+The head takes the body's features whole (models/segmentation.py gathers
+them once for the head and the attention maps).
 """
 
 from __future__ import annotations
@@ -19,10 +29,26 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .layers import ABN, conv, global_avg_pool, wide_dtype
+from ..parallel.collectives import copy_to_model, scatter_to_model
+from .layers import (ABN, conv, conv_input, global_avg_pool, is_sharded,
+                     whole, wide_dtype)
+
+# the branches concatenated in front of `map_bn`
+MAP_BN_GROUPS = 4
+
+
+def gathered_order(channels: int, n_model: int, device=None) -> torch.Tensor:
+    """The unsharded concatenation's channel at each place of the
+    concatenation gathered from `n_model` ranks that each hold a slice of
+    every one of the MAP_BN_GROUPS branches (rank-major: rank, branch,
+    slice)."""
+    idx = torch.arange(channels, device=device)
+    return idx.view(MAP_BN_GROUPS, n_model, -1).transpose(0, 1).reshape(-1)
 
 
 class DeeplabV3(nn.Module):
+    mesh = None
+
     def __init__(self, in_channels: int, out_channels: int = 256,
                  hidden_channels: int = 256, out_stride: int = 16,
                  pooling_size: Optional[int] = None,
@@ -53,11 +79,31 @@ class DeeplabV3(nn.Module):
         self.red_bn = ABN(out_channels, **abn)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        out = torch.cat([self.map_conv0(x), self.map_conv1(x),
-                         self.map_conv2(x), self.map_conv3(x)], dim=1)
-        out = self.red_conv(self.map_bn(out))
-        pool = self.global_pooling_conv(self._global_pooling(x))
-        pool = self.pool_red_conv(self.global_pooling_bn(pool))
+        """`x` whole; on the mesh the output is a channel shard where
+        `red_conv` is sharded."""
+        group = self.mesh.model_group if self.mesh is not None else None
+        branches_sharded = is_sharded(self.map_conv0)
+        xs = copy_to_model(x, group) if branches_sharded else x
+        out = torch.cat([self.map_conv0(xs), self.map_conv1(xs),
+                         self.map_conv2(xs), self.map_conv3(xs)], dim=1)
+        channels = self.map_bn.bn.num_features
+        if self.map_bn.bn.weight.shape[0] < out.shape[1]:
+            out = scatter_to_model(out, group)
+        out = self.map_bn(out)
+        if branches_sharded:
+            # rank-major gathered channels meet the matching weight columns
+            out = whole(out, channels, group)
+            w = self.red_conv.weight.index_select(
+                1, gathered_order(channels, self.mesh.n_model, out.device))
+            if is_sharded(self.red_conv):
+                out = copy_to_model(out, group)
+            out = self.red_conv._conv_forward(out, w.to(out.dtype), None)
+        else:
+            out = self.red_conv(conv_input(out, self.red_conv, group))
+        pool = self.global_pooling_conv(conv_input(
+            self._global_pooling(x), self.global_pooling_conv, group))
+        pool = self.pool_red_conv(conv_input(
+            self.global_pooling_bn(pool), self.pool_red_conv, group))
         # a (B, C, 1, 1) global pool broadcasts over the map in the add
         return self.red_bn(out + pool)
 

@@ -30,6 +30,14 @@ inside a process group the recompute reuses the global statistics of the
 first run instead of gathering them again, so a rematerialized step leaves
 the statistics as the plain step does (flax's `nn.remat` recomputes
 functionally: its `batch_stats` move once).
+
+On the 2-D data x model mesh (ucd_torch/parallel/mesh.py, `use_mesh`) a
+wide conv holds a shard of its output channels and its ABN the same
+shard of the per-channel parameters and statistics, so an activation is
+either whole (every model rank computes it alike) or this rank's channel
+shard; its channel count tells which. `conv_input` makes a conv's input
+from either, and BatchNorm statistics, local to a channel, combine over
+the data group only.
 """
 
 from __future__ import annotations
@@ -45,6 +53,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..parallel.collectives import (all_gather_rows, all_reduce_sum_,
+                                   copy_to_model, gather_from_model,
                                    is_distributed)
 
 
@@ -136,10 +145,11 @@ class _SyncBatchNorm(torch.autograd.Function):
     weights' dtype and the output rounded back. `stats` = (mean, biased
     variance, per-process counts) of an earlier run over the same batch (a
     rematerialized block's recompute) skips the statistics and their
-    gather."""
+    gather. `group` is the process group the batch is split over (None:
+    the world; the data group on a 2-D mesh)."""
 
     @staticmethod
-    def forward(ctx, x, weight, bias, eps, stats=None):
+    def forward(ctx, x, weight, bias, eps, stats=None, group=None):
         c = x.shape[1]
         in_dtype = x.dtype
         if not x.is_cuda and x.dtype != weight.dtype:
@@ -158,7 +168,9 @@ class _SyncBatchNorm(torch.autograd.Function):
             else:
                 var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
             n = mean.new_full((1,), x.numel() // c)
-            gathered = all_gather_rows(torch.cat([n, mean, var * n])[None])
+            packed = torch.cat([n, mean, var * n])[None]
+            gathered = all_gather_rows(packed) if group is None \
+                else all_gather_rows(packed, group)
             counts, means = gathered[:, :1], gathered[:, 1:c + 1]
             m2 = gathered[:, c + 1:]
             total = counts.sum()
@@ -176,6 +188,7 @@ class _SyncBatchNorm(torch.autograd.Function):
                               (invstd * weight).view(shape)).to(in_dtype)
         ctx.save_for_backward(x, weight, mean, var, invstd, counts)
         ctx.eps = eps
+        ctx.group = group
         ctx.in_dtype = in_dtype
         ctx.mark_non_differentiable(mean, var, counts)
         return y, mean, var, counts
@@ -193,16 +206,17 @@ class _SyncBatchNorm(torch.autograd.Function):
             sum_dy, sum_dy_xmu, grad_w, grad_b = \
                 torch.batch_norm_backward_reduce(dy, x, mean, invstd, weight,
                                                  True, dw, db)
-            both = all_reduce_sum_(torch.cat([sum_dy, sum_dy_xmu]))
+            both = all_reduce_sum_(torch.cat([sum_dy, sum_dy_xmu]),
+                                   ctx.group)
             dx = torch.batch_norm_backward_elemt(
                 dy, x, mean, invstd, weight, both[:c], both[c:], counts)
-            return dx, grad_w, grad_b, None, None
+            return dx, grad_w, grad_b, None, None, None
         # inference mode: the statistics are constants here (CUDA's kernel
         # asks for them twice, as running and as saved statistics)
         dx, grad_w, grad_b = torch.ops.aten.native_batch_norm_backward(
             dy, x, weight, mean, var, mean, invstd, False, ctx.eps,
             [True, True, True])
-        both = all_reduce_sum_(torch.cat([grad_b, grad_w]))
+        both = all_reduce_sum_(torch.cat([grad_b, grad_w]), ctx.group)
         total = counts.sum().to(x.dtype)
         scale = weight * invstd
         # dx - scale * (mean(dy) + x_hat * mean(dy * x_hat))
@@ -212,7 +226,7 @@ class _SyncBatchNorm(torch.autograd.Function):
         dx = dx.addcmul_(x - mean.view(shape), a.view(shape)).add_(
             b.view(shape))
         return (dx.to(ctx.in_dtype), grad_w if dw else None,
-                grad_b if db else None, None, None)
+                grad_b if db else None, None, None, None)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -228,7 +242,13 @@ class BatchNorm2d(nn.BatchNorm2d):
 
     Under rematerialization (`remat_contexts`) the statistics move in the
     first forward only; the recompute normalizes with the batch statistics
-    again (from the first run's global ones inside a process group)."""
+    again (from the first run's global ones inside a process group).
+
+    `group` is the process group the batch is split over: None (the
+    world), or the data group on a 2-D mesh (`use_mesh`), where the
+    module may hold a channel shard of its parameters and statistics."""
+
+    group = None
 
     def __init__(self, *args, **kwargs):
         super().__init__(*args, **kwargs)
@@ -248,7 +268,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         if is_distributed():
             stats = self._remat_stats.popleft() if not update else None
             y, mean, var, counts = _SyncBatchNorm.apply(
-                x, self.weight, self.bias, self.eps, stats)
+                x, self.weight, self.bias, self.eps, stats, self.group)
             if update:
                 if phase == "forward" and torch.is_grad_enabled():
                     self._remat_stats.append((mean, var, counts))
@@ -353,3 +373,58 @@ def conv(in_channels: int, out_channels: int, kernel: int, stride: int = 1,
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:
     """Mean over the spatial dims, keepdims."""
     return x.mean(dim=(2, 3), keepdim=True)
+
+
+# ---------------------------------------------------------------------------
+# the model axis of the 2-D mesh
+# ---------------------------------------------------------------------------
+
+def is_sharded(conv: nn.Conv2d) -> bool:
+    """True where `conv` holds a shard of its output channels (its weight,
+    or the donor's variable in its place under `functional_call`)."""
+    return conv.weight.shape[0] != conv.out_channels
+
+
+def whole(x: torch.Tensor, channels: int, group) -> torch.Tensor:
+    """`x` with all its `channels`: gathered over the model `group` where
+    it is this rank's shard."""
+    return gather_from_model(x, group) if x.shape[1] != channels else x
+
+
+def conv_input(x: torch.Tensor, conv: nn.Conv2d, group) -> torch.Tensor:
+    """What `conv` takes from `x` (whole or a shard) on the model axis: the
+    whole tensor, whose gradient is summed over the model `group` where
+    `conv` is sharded (each rank holds a partial gradient through its own
+    weight shard)."""
+    x = whole(x, conv.in_channels, group)
+    return copy_to_model(x, group) if is_sharded(conv) else x
+
+
+def use_mesh(model: nn.Module, mesh) -> nn.Module:
+    """Put `model` (its parameters already sharded, engine/state.py
+    `shard_module_`, or a donor shell evaluated on sharded variables) on
+    the 2-D mesh `mesh`: every module that carries the model axis reads
+    `mesh`, and every BatchNorm combines its statistics over the data
+    group. Raises NotImplementedError for what the mesh does not run yet:
+    GroupNorm ABN, a bf16 `norm_dtype` and the body's remat and S2D stem
+    options."""
+    for name, m in model.named_modules():
+        if isinstance(m, ABN) and m.norm_type == "gn":
+            raise NotImplementedError(
+                f"{name}: GroupNorm ABN does not run on the 2-D mesh yet")
+        if isinstance(m, ABN) and m.norm_dtype is not None:
+            raise NotImplementedError(
+                f"{name}: bf16_norm / bf16_norm_early do not run on the "
+                f"2-D mesh yet")
+        if getattr(m, "remat_blocks", None):
+            raise NotImplementedError(
+                "remat / remat_early do not run on the 2-D mesh yet")
+        if getattr(m, "stem_s2d", False):
+            raise NotImplementedError(
+                "stem_s2d does not run on the 2-D mesh yet")
+    for m in model.modules():
+        if isinstance(m, BatchNorm2d):
+            m.group = mesh.data_group
+        if "mesh" in type(m).__dict__:
+            m.mesh = mesh
+    return model

@@ -11,6 +11,15 @@ The JAX package's execution options are the constructor's: `stem_s2d`
 residual block rematerialized in the backward) and `remat_early` (the
 mod2 group only), `norm_dtype` and `norm_dtype_early` (the dtype the ABNs
 round their normalized output to; the early one for the stem and mod2).
+
+On the 2-D mesh (`mesh`, set by models/layers.py `use_mesh`) a block
+takes its input whole or as a channel shard and returns its output as
+its last conv's output is held: a shard where that conv is sharded. Each
+conv takes its input through `conv_input` (one gather of a shard for all
+the block's convs); the residual sum adds shards of one channel split:
+the last conv and the shortcut have as many output channels, so
+`channel_sharding` shards both or neither. Off the mesh every model-axis
+helper is the identity, and the forward is the plain one.
 """
 
 from __future__ import annotations
@@ -22,7 +31,9 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from .layers import ABN, Conv2d, conv, remat_contexts, wide_dtype
+from ..parallel.collectives import copy_to_model
+from .layers import (ABN, Conv2d, conv, conv_input, is_sharded,
+                     remat_contexts, whole, wide_dtype)
 
 STRUCTURES = {
     "resnet18": ([2, 2, 2, 2], False),
@@ -72,6 +83,8 @@ class ResidualBlock(nn.Module):
     The last norm of the main path and the projection shortcut have no
     activation; leaky_relu follows the residual add."""
 
+    mesh = None
+
     def __init__(self, in_channels: int, channels: Sequence[int],
                  stride: int = 1, dilation: int = 1,
                  activation_param: float = 0.01,
@@ -82,6 +95,7 @@ class ResidualBlock(nn.Module):
         param_dtype = param_dtype or wide_dtype(dtype)
         ch = tuple(channels)
         self.is_bottleneck = len(ch) == 3
+        self.in_channels = in_channels
         self.activation_param = activation_param
         out_ch = ch[-1]
         self.need_proj = stride != 1 or in_channels != out_ch
@@ -110,11 +124,22 @@ class ResidualBlock(nn.Module):
             self.bn2 = ABN(ch[1], **ident)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        residual = self.proj_bn(self.proj_conv(x)) if self.need_proj else x
-        y = self.bn1(self.conv1(x))
-        y = self.bn2(self.conv2(y))
+        group = self.mesh.model_group if self.mesh is not None else None
+        xw = whole(x, self.in_channels, group)
+        heads = [self.conv1] + ([self.proj_conv] if self.need_proj else [])
+        # one gradient sum for the block's sharded convs on its input
+        xs = copy_to_model(xw, group) \
+            if any(is_sharded(c) for c in heads) else xw
+
+        def first(c):
+            return c(xs if is_sharded(c) else xw)
+
+        residual = self.proj_bn(first(self.proj_conv)) if self.need_proj \
+            else x
+        y = self.bn1(first(self.conv1))
+        y = self.bn2(self.conv2(conv_input(y, self.conv2, group)))
         if self.is_bottleneck:
-            y = self.bn3(self.conv3(y))
+            y = self.bn3(self.conv3(conv_input(y, self.conv3, group)))
         return F.leaky_relu(y + residual, self.activation_param)
 
 
@@ -129,7 +154,12 @@ class ResNet(nn.Module):
     weights (default f32 masters, f64 for the f64 test dtype). `remat` /
     `remat_early` rematerialize every block / the mod2 blocks when
     gradients are on (`torch.utils.checkpoint`, non-reentrant, with the
-    BatchNorm statistics moved once: models/layers.py)."""
+    BatchNorm statistics moved once: models/layers.py).
+
+    On the 2-D mesh (`mesh`) the output is a channel shard where the last
+    block's last conv is sharded."""
+
+    mesh = None
 
     def __init__(self, structure: Sequence[int] = (3, 4, 23, 3),
                  bottleneck: bool = True, output_stride: int = 16,
@@ -175,7 +205,9 @@ class ResNet(nn.Module):
             channels = tuple(c * 2 for c in channels)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.mod1_bn1(self.mod1_conv1(x))
+        group = self.mesh.model_group if self.mesh is not None else None
+        y = self.mod1_bn1(self.mod1_conv1(
+            conv_input(x, self.mod1_conv1, group)))
         y = F.max_pool2d(y, 3, stride=2, padding=1)
         remat = torch.is_grad_enabled()
         for name in self.block_names:

@@ -30,7 +30,7 @@ from torch import nn
 from ..data.transforms import IMAGENET_MEAN, IMAGENET_STD
 from .deeplab import DeeplabV3
 from .layers import (BatchNorm2d, he_normal_, leaky_relu_gain,
-                     lecun_normal_, wide_dtype, xavier_normal_gain_)
+                     lecun_normal_, whole, wide_dtype, xavier_normal_gain_)
 from .resnet import STRUCTURES, ResNet
 
 
@@ -92,7 +92,15 @@ class IncrementalSegmentationModel(nn.Module):
     (the stem and mod2 only; `bf16_norm_early`). None is the wide dtype.
 
     The JAX model's `fix_bn` is this module's eval mode with gradients on:
-    `model.train(train and not fix_bn)`."""
+    `model.train(train and not fix_bn)`.
+
+    On the 2-D mesh (`mesh`, models/layers.py `use_mesh`) the body's and
+    the head's outputs may be channel shards: each is gathered whole once,
+    the body's for the head and the attention maps, the head's for the
+    classifiers (replicated at any `min_size`: 16 and 1 outputs) and the
+    attention maps."""
+
+    mesh = None
 
     def __init__(self, classes: Sequence[int], backbone: str = "resnet101",
                  output_stride: int = 16, head_channels: int = 256,
@@ -132,8 +140,11 @@ class IncrementalSegmentationModel(nn.Module):
     def _features(self, x: torch.Tensor):
         if x.dtype == torch.uint8:
             x = normalize_uint8(x, self.cls_dtype)
-        x_b = self.body(x.to(self.dtype))
-        x_pl = self.head(x_b)
+        group = self.mesh.model_group if self.mesh is not None else None
+        # the head and the attention maps take the body's features whole
+        x_b = whole(self.body(x.to(self.dtype)), self.body.out_channels,
+                    group)
+        x_pl = whole(self.head(x_b), self.head_channels, group)
         x_plw = x_pl.to(self.cls_dtype)
         sem = torch.cat([cls(x_plw) for cls in self.classifiers()], dim=1)
         return x_b, x_pl, sem

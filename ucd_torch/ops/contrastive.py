@@ -251,8 +251,8 @@ def ucd_contrastive_loss(f_n, labels, l_po, f_o, max_label: int,
                          temperature: float = 0.07, capacity: int = 0,
                          use_pallas: bool = False,
                          bug_compatible: bool = False,
-                         kernel_dtype: Optional[torch.dtype] = None
-                         ) -> torch.Tensor:
+                         kernel_dtype: Optional[torch.dtype] = None,
+                         group=None) -> torch.Tensor:
     """End-to-end UCD contrastive term: build batch -> (compact) -> loss,
     over the global batch inside a process group (every process computes
     the same term; the gradient of `f_n` is this process's rows).
@@ -261,7 +261,8 @@ def ucd_contrastive_loss(f_n, labels, l_po, f_o, max_label: int,
     compute mode), else the dense loss. `bug_compatible` reproduces the
     unstabilized negative sum (dense path only: the tiled kernels compute
     the stabilized form, so the combination is rejected rather than silently
-    rerouted)."""
+    rerouted). `group` is the process group the batch is split over (None:
+    the world; the data group on a 2-D mesh)."""
     if use_pallas and bug_compatible:
         raise ValueError(
             "use_pallas=True is incompatible with contrastive_bug_compatible:"
@@ -273,8 +274,8 @@ def ucd_contrastive_loss(f_n, labels, l_po, f_o, max_label: int,
         # has no partitioning rule): min_new, the self-pair column and the
         # compaction order are the global batch's. Every process gathers
         # the four inputs in rank order and computes the same term.
-        f_n = gather_rows(f_n)
-        labels, l_po, f_o = (gather_rows(t.detach())
+        f_n = gather_rows(f_n, group)
+        labels, l_po, f_o = (gather_rows(t.detach(), group)
                              for t in (labels, l_po, f_o))
     batch = build_contrastive_batch(f_n, labels, l_po, f_o, max_label)
     batch = compact_batch(batch, capacity)
