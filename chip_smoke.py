@@ -106,9 +106,16 @@ Phases (any failure exits non-zero, and no result line is printed):
         terms, the update and the worst tensor's update within 3b's bf16
         bound or twice a rounding-only change, cuDNN off); the mesh's
         replicated tensors the same bits on both ranks, B1-B5 once in its
-        bf16 step (counts set to 0 just before, read just after); each
-        rank's bytes of parameters + momentum + donor against the plain
-        step's, peak memory, seconds a step (recorded, not judged);
+        bf16 step (counts set to 0 just before, read just after); on the
+        mesh also the validate step against the plain one (each labelled
+        pixel counted once, predictions by phase 2's tie rule for B6,
+        the loss within 3b's bf16 bound; B1 and B6 once at bf16), a
+        `nan_guard` step with a NaN gradient on model rank 1 only (both
+        ranks skip; parameters, momentum and update count keep their
+        bits), an EWC step and a `bf16_norm` step, each at bf16 and f32
+        against its plain step by `check_dp_deviation`; each rank's bytes
+        of parameters + momentum + donor against the plain step's, peak
+        memory, seconds a step (recorded, not judged);
   4. time each kernel three ways (its own device time from a
      torch.profiler window, CUDA events around the wrapper calls, the
      host's enqueue time a call) beside its plain version, one library
@@ -133,7 +140,8 @@ step img/s), `{"options": ...}` (phase 3g) and `{"mesh2d": ...}` (phase
 3h). The last three lines of stdout are the `{"kernels": [...]}` record
 (each row's `ms` / `kernel_ms` the device time, `wrapper_ms` the events',
 `launches_experiment` its launches in phase 3c, `launches_options` in
-3g's option steps, `launches_mesh2d` in 3h's bf16 mesh step), the
+3g's option steps, `launches_mesh2d` in 3h's bf16 mesh sides: the
+validate, train, nan_guard, EWC and bf16_norm steps), the
 card's name and power limit (nvidia-smi), and `{"ok": true, "device": ...}`.
 `--profile DIR` also writes torch.profiler tables of predict_labels and of
 the train step there. `--only kernels` stops after phase 2, `--only dp`
@@ -2821,8 +2829,102 @@ MESH2D_MIN_SIZE = 256      # the JAX package's `channel_sharding` default
 MESH2D_TIMED_STEPS = 2     # host-staged (gloo) steps timed a rank
 
 
+MESH2D_NAN_PARAM = "body.mod4_block1.conv2.weight"   # 256 outputs: sharded
+# phase 2's rule for B6 (gap below which two argmaxes may differ, rate)
+ARGMAX_TIES = {"bfloat16": (0.08, 2e-2), "float32": (1e-4, 1e-3)}
+
+
 def _cpu(tensors: dict) -> dict:
     return {k: v.detach().cpu() for k, v in tensors.items()}
+
+
+def ewc_cfg(cfg):
+    """`cfg` under the EWC regularizer, at the EWC preset's importance."""
+    return dataclasses.replace(cfg, regularizer="ewc", reg_importance=500.0)
+
+
+def ewc_export(model, old_vars, seed=171) -> dict:
+    """A seeded EWC export (the previous step's fisher) over the donor's
+    parameters, on the host."""
+    g = torch.Generator().manual_seed(seed)
+    return {"fisher": {k: torch.rand(p.shape, generator=g)
+                       for k, p in model.named_parameters()
+                       if k in old_vars}}
+
+
+def ewc_state(cfg, model, old_vars, export):
+    """The EWC state of `model` from `export`, anchored at the donor's
+    parameters; its penalty weights normalized whole."""
+    params = {k: p.detach() for k, p in model.named_parameters()}
+    return R.init_reg_state(
+        "ewc", params,
+        old_params={k: v for k, v in old_vars.items() if k in params},
+        saved=export, alpha=cfg.reg_alpha, iterations=cfg.reg_iterations,
+        normalize=cfg.reg_normalize)
+
+
+def validate_ref(cfg, model, model_old, old_vars, batch) -> dict:
+    """The plain validate step on `batch`: the confusion matrix, the loss,
+    the predictions and, for phase 2's tie rule, the top-2 gap of the
+    upsampled logits at each pixel; then the same step with cuDNN off (a
+    rounding-only change): its predictions and loss."""
+    dev = next(model.parameters()).device
+    step = make_eval_step(cfg, model, model_old, device=dev)
+    hist, terms, preds = step(None, batch,
+                              empty_confusion(cfg.tot_classes, dev),
+                              old_vars)
+    with torch.backends.cudnn.flags(enabled=False):
+        _, alt_terms, alt_preds = step(
+            None, batch, empty_confusion(cfg.tot_classes, dev), old_vars)
+    x = torch.from_numpy(batch["image"]).to(dev).permute(0, 3, 1, 2)
+    with torch.no_grad():
+        up = F.interpolate(model.forward_sem(x).float(),
+                           size=batch["label"].shape[1:], mode="bilinear",
+                           align_corners=False)
+        top2 = up.topk(2, dim=1).values
+    return {"hist": hist.cpu(), "loss": float(terms["loss"]),
+            "preds": preds.cpu(), "gap": (top2[:, 0] - top2[:, 1]).cpu(),
+            "alt_preds": alt_preds.cpu(), "alt_loss": float(alt_terms["loss"])}
+
+
+def _argmax_diff(preds, ref) -> tuple:
+    """(mismatched pixels, their largest top-2 gap under the plain
+    logits, their rate) of `preds` against the plain validate step's."""
+    mism = preds != ref["preds"]
+    n_bad = int(mism.sum())
+    return (n_bad, float(ref["gap"][mism].max()) if n_bad else 0.0,
+            n_bad / mism.numel())
+
+
+def check_mesh_validate(v, ref, batch, dtype) -> dict:
+    """A mesh rank's validate step (`v`) against the plain one (`ref`):
+    the confusion matrix counts each labelled pixel once; predictions
+    differ at a rate below phase 2's bound for B6 (ARGMAX_TIES), each at
+    a top-2 gap of the plain logits below phase 2's gap or twice the
+    largest gap a rounding-only change of the plain step flips (at bf16
+    the convolutions' own rounding moves the logits, not only the
+    upsample's), the confusion matrix by at most those pixels; the loss
+    within 3b's bf16 bound or twice the rounding-only change's."""
+    hist = v["hist"].cpu()
+    labelled = int((batch["label"] != 255).sum())
+    assert int(hist.sum()) == labelled, (int(hist.sum()), labelled)
+    gap_tol, rate_tol = ARGMAX_TIES[dtype]
+    _, alt_gap, alt_rate = _argmax_diff(ref["alt_preds"], ref)
+    n_bad, worst, rate = _argmax_diff(v["preds"].cpu(), ref)
+    assert worst < max(gap_tol, 2 * alt_gap) and rate < rate_tol, (
+        dtype, n_bad, worst, rate, alt_gap, alt_rate)
+    hist_diff = int((hist - ref["hist"]).abs().sum())
+    assert hist_diff <= 2 * n_bad, (hist_diff, n_bad)
+    loss_err = abs(v["terms"]["loss"] - ref["loss"]) / abs(ref["loss"])
+    alt_err = abs(ref["alt_loss"] - ref["loss"]) / abs(ref["loss"])
+    assert loss_err <= max(DP_VS_PLAIN[0], 2 * alt_err), (
+        dtype, v["terms"], ref["loss"], alt_err)
+    return {"labelled_pixels": labelled, "mismatches": n_bad,
+            "mismatch_rate": rate, "worst_gap": worst,
+            "rounding_only_gap": alt_gap, "rounding_only_rate": alt_rate,
+            "hist_l1_diff": hist_diff, "loss_rel_err": loss_err,
+            "rounding_only_loss_err": alt_err,
+            "loss": v["terms"]["loss"], "loss_plain": ref["loss"]}
 
 
 def state_bytes(state, model, old_vars, shell=None) -> int:
@@ -2842,16 +2944,61 @@ def _sync(dev):
         torch.cuda.synchronize()
 
 
+def _rank_state(cfg, start, dev, export=None):
+    """A rank's full state of `cfg` from the start the parent saved (its
+    model's variables and the donor's) with a fresh optimizer, under
+    `export` an EWC state from it: (model, donor shell, state, donor
+    variables)."""
+    model = make_model(cfg)
+    model.init_weights = lambda generator: model  # loaded below
+    model_old = make_model(cfg, cfg.classes_per_step[:-1]).to(
+        device=dev, memory_format=torch.channels_last)
+    state, old_vars = build_train_state(
+        cfg, model, torch.Generator(), total_iters=100,
+        prev_model_state=start["old"], device=dev)
+    with torch.no_grad():
+        model.load_state_dict(start["model"])
+    if export is not None:
+        state.reg_state = ewc_state(cfg, model, old_vars, export)
+    return model, model_old, state, old_vars
+
+
+def _mesh_step(cfg, model, model_old, state, old_vars, batch) -> dict:
+    """One train step on the mesh, the launch counts set to 0 just before
+    and read just after: its metrics, launches and the state after (the
+    model's and the momentum's shards)."""
+    step = make_train_step(cfg, model, model_old, total_iters=100,
+                           device=next(model.parameters()).device)
+    zero_kernel_counts()
+    _, m = step(state, batch, old_vars)
+    counts = kernel_counts()
+    return {"metrics": {k: float(v) for k, v in m.items()},
+            "launches": counts,
+            "after": _cpu({k: v for k, v in snapshot(state, model).items()
+                           if not k.startswith("reg.")})}
+
+
+def _free(dev):
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
 def mesh2d_rank(rank, rdzv, work, device):
     """One of phase 3h's two gloo ranks on `device`, cuda:0 (gloo stages
     CUDA tensors through the host; one card cannot host two NCCL ranks;
     "cpu" rehearses the phase at a small size). For
     bf16 and then the f32 twin, from the start the parent saved: (a) the
     1-D step on this rank's 4 images; (b) the same start put on the 1 x 2
-    mesh (`shard_train_state`, min_size 256) and one step on all 8
-    images, the kernels' launch counts set to 0 just before it and read
-    just after; at bf16, MESH2D_TIMED_STEPS more steps timed. Saves each
-    side's metrics and state (rank 0's 1-D state; each rank's shards)."""
+    mesh (`shard_train_state`, min_size 256): the validate step and one
+    train step on all 8 images, each with the kernels' launch counts set
+    to 0 just before it and read just after; at bf16, MESH2D_TIMED_STEPS
+    more steps timed, then one `nan_guard` step with model rank 1's
+    gradient of MESH2D_NAN_PARAM made NaN; (c) one EWC step from the
+    start and the parent's export on the mesh. Then (d) one `bf16_norm`
+    step on the mesh at bf16 and in the f32 twin. Saves each side's
+    metrics, launches and state (rank 0's 1-D state; each rank's
+    shards)."""
     from ucd_torch.engine.state import shard_train_state
     dev = torch.device(device)
     if dev.type == "cuda":
@@ -2868,15 +3015,8 @@ def mesh2d_rank(rank, rdzv, work, device):
         out = {"place": (mesh.data_index, mesh.model_index)}
         for dtype in ("bfloat16", "float32"):
             cfg = dataclasses.replace(start["cfg"], dtype=dtype)
-            model = make_model(cfg)
-            model.init_weights = lambda generator: model  # loaded below
-            model_old = make_model(cfg, cfg.classes_per_step[:-1]).to(
-                device=dev, memory_format=torch.channels_last)
-            state, old_vars = build_train_state(
-                cfg, model, torch.Generator(), total_iters=100,
-                prev_model_state=start[dtype]["old"], device=dev)
-            with torch.no_grad():
-                model.load_state_dict(start[dtype]["model"])
+            model, model_old, state, old_vars = _rank_state(
+                cfg, start[dtype], dev)
             before = snapshot(state, model)
             step = make_train_step(cfg, model, model_old, total_iters=100,
                                    device=dev)
@@ -2891,6 +3031,15 @@ def mesh2d_rank(rank, rdzv, work, device):
             del before
             state, old_vars = shard_train_state(state, old_vars, mesh,
                                                 MESH2D_MIN_SIZE)
+            eval_step = make_eval_step(cfg, model, model_old, device=dev)
+            zero_kernel_counts()
+            hist, terms, preds = eval_step(
+                None, batch, empty_confusion(cfg.tot_classes, dev),
+                old_vars)
+            side["validate"] = {
+                "launches": kernel_counts(), "hist": hist.cpu(),
+                "preds": preds.cpu(),
+                "terms": {k: float(v) for k, v in terms.items()}}
             step = make_train_step(cfg, model, model_old, total_iters=100,
                                    device=dev)
             if dev.type == "cuda":
@@ -2916,14 +3065,68 @@ def mesh2d_rank(rank, rdzv, work, device):
                     _sync(dev)
                     times.append(time.perf_counter() - t0)
                 side["step_s_2d"] = times
+                side["nan_guard"] = _nan_guard_side(
+                    cfg, model, model_old, state, old_vars, batch, mesh)
+            del model, model_old, state, old_vars, step, eval_step
+            _free(dev)
+            cfg_e = ewc_cfg(cfg)
+            model, model_old, state, old_vars = _rank_state(
+                cfg_e, start[dtype], dev, start["ewc_export"])
+            state, old_vars = shard_train_state(state, old_vars, mesh,
+                                                MESH2D_MIN_SIZE)
+            side["ewc"] = _mesh_step(cfg_e, model, model_old, state,
+                                     old_vars, batch)
             out[dtype] = side
-            del model, model_old, state, old_vars, step
-            gc.collect()
-            if dev.type == "cuda":
-                torch.cuda.empty_cache()
+            del model, model_old, state, old_vars
+            _free(dev)
+        out["bf16_norm"] = {}
+        for dtype in ("bfloat16", "float32"):
+            cfg = dataclasses.replace(start["cfg"], bf16_norm=True,
+                                      dtype=dtype)
+            model, model_old, state, old_vars = _rank_state(
+                cfg, start[dtype], dev)
+            state, old_vars = shard_train_state(state, old_vars, mesh,
+                                                MESH2D_MIN_SIZE)
+            out["bf16_norm"][dtype] = _mesh_step(
+                cfg, model, model_old, state, old_vars, batch)
+            del model, model_old, state, old_vars
+            _free(dev)
         torch.save(out, os.path.join(work, f"rank{rank}.pt"))
     finally:
         torch.distributed.destroy_process_group()
+
+
+def _nan_guard_side(cfg, model, model_old, state, old_vars, batch,
+                    mesh) -> dict:
+    """One `nan_guard` step on the mesh with model rank 1's gradient of
+    MESH2D_NAN_PARAM (a sharded conv) made NaN, the launch counts set to
+    0 just before and read just after: the count of skipped updates, and
+    which of the parameters, momentum and applied-update count changed
+    (none may: every rank skips; the BatchNorm statistics move in the
+    forward, as in the JAX step, whose `apply_if_finite` guards the
+    update)."""
+    step = make_train_step(dataclasses.replace(cfg, nan_guard=True), model,
+                           model_old, total_iters=100,
+                           device=next(model.parameters()).device)
+    param = dict(model.named_parameters())[MESH2D_NAN_PARAM]
+    assert MESH2D_NAN_PARAM in model.sharded
+    hook = param.register_hook(lambda g: torch.full_like(
+        g, float("nan"))) if mesh.model_index == 1 else None
+    before = snapshot(state, model)
+    zero_kernel_counts()
+    _, m = step(state, batch, old_vars)
+    counts = kernel_counts()
+    after = snapshot(state, model)
+    if hook is not None:
+        hook.remove()
+    kept = [k for k in before if k not in ("step", "nonfinite")
+            and not k.endswith(("running_mean", "running_var",
+                                "num_batches_tracked"))]
+    return {"launches": counts, "kept": len(kept),
+            "changed": [k for k in kept
+                        if not torch.equal(before[k], after[k])],
+            "nonfinite": int(state.opt_state["nonfinite"]),
+            "loss_tot": float(m["loss_tot"])}
 
 
 def unshard_snapshot(snaps, like, min_size) -> dict:
@@ -2974,11 +3177,20 @@ def phase_mesh2d(dev, tr, where) -> dict:
     with a fresh schedule, at bf16 and in the f32 twin: (a) the 1-D data
     axis, 4 images a rank, and (b) the 1 x 2 data x model mesh, the wide
     convs' output channels sharded over the two ranks (min_size 256), on
-    all 8 images. Each is held to the plain step by `check_dp_deviation`
-    (the loss terms, the update overall and the worst tensor's, within
-    DP_VS_PLAIN or twice a rounding-only change); the mesh's replicated
-    tensors and momentum must have the same bits on both ranks, B1-B5
-    must launch once in its bf16 step, and each rank's bytes of
+    all 8 images: its validate step against the plain one
+    (`check_mesh_validate`: each labelled pixel counted once, predictions
+    by phase 2's tie rule, the loss within 3b's bf16 bound), and its
+    train step; at bf16 a `nan_guard` step with a NaN gradient on model
+    rank 1 only, which both ranks must skip; (c) an EWC step on the mesh
+    against the plain EWC step; (d) a `bf16_norm` step on the mesh
+    against the plain `bf16_norm` step, at bf16 and f32 compute (the f32
+    side tells a fault from rounding). Each train step is held to its
+    plain step by `check_dp_deviation` (the loss terms, the update overall
+    and the worst tensor's, within DP_VS_PLAIN or twice a rounding-only
+    change; EWC's penalty within DP_VS_PLAIN's terms bound); the mesh's
+    replicated tensors and momentum must have the same bits on both
+    ranks, B1 and B6 must launch once in its bf16 validate step and B1-B5
+    once in each of its bf16 train steps, and each rank's bytes of
     parameters + momentum + donor, peak memory and seconds a step
     (host-staged, recorded, not judged) are reported."""
     import torch.multiprocessing as mp
@@ -2994,23 +3206,43 @@ def phase_mesh2d(dev, tr, where) -> dict:
         for t in [*opt["trace"].values(), opt["count"], opt["nonfinite"],
                   state.step]:
             t.zero_()
-    ref = {"bfloat16": plain_and_rounding(cfg, model, model_old, state,
-                                          old_vars, batch)}
-    plain_bytes = state_bytes(state, model, old_vars)
-    start = {"bfloat16": {"model": _cpu(model.state_dict()),
-                          "old": _cpu(old_vars)}, "batch": batch,
-             "cfg": cfg}
-    twin = f32_twin(tr, dev)
-    ref["float32"] = plain_and_rounding(*twin, batch)
-    start["float32"] = {"model": _cpu(twin[1].state_dict()),
-                        "old": _cpu(twin[4])}
-    del twin
-    gc.collect()
+    export = ewc_export(model, old_vars)
+    sides = {"bfloat16": (cfg, model, model_old, state, old_vars)}
+    ref, ref_ewc, ref_val = {}, {}, {}
+    start = {"batch": batch, "cfg": cfg, "ewc_export": export}
+    plain_bytes = plain_peak = None
+    for dtype in ("bfloat16", "float32"):
+        if dtype == "float32":
+            sides[dtype] = f32_twin(tr, dev)
+        c, m, mo, st, ov = sides[dtype]
+        ref[dtype] = plain_and_rounding(c, m, mo, st, ov, batch)
+        if dtype == "bfloat16":
+            plain_bytes = state_bytes(st, m, ov)
+            plain_peak = ref[dtype][3]
+        ref_val[dtype] = validate_ref(c, m, mo, ov, batch)
+        start[dtype] = {"model": _cpu(m.state_dict()), "old": _cpu(ov)}
+        st.reg_state = ewc_state(ewc_cfg(c), m, ov, export)
+        ref_ewc[dtype] = plain_and_rounding(ewc_cfg(c), m, mo, st, ov, batch)
+        st.reg_state = None
+    del sides["float32"]
+    # bf16_norm at both compute dtypes (make_model rounds the ABNs'
+    # outputs at any): at bf16 a rounding-only change moves the step by
+    # about its size, so only the f32 side can tell a fault from rounding
+    ref_bn = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg_bn = dataclasses.replace(cfg, bf16_norm=True, dtype=dtype)
+        m_bn, mo_bn, st_bn, ov_bn = build_train(dev, cfg_bn,
+                                                start[dtype]["old"])
+        with torch.no_grad():
+            m_bn.load_state_dict(start[dtype]["model"])
+        ref_bn[dtype] = plain_and_rounding(cfg_bn, m_bn, mo_bn, st_bn, ov_bn,
+                                           batch)
+        del m_bn, mo_bn, st_bn, ov_bn
+        gc.collect()
     if dev.type == "cuda":
         torch.cuda.empty_cache()
     out = {"card": where, "min_size": MESH2D_MIN_SIZE,
-           "plain_state_bytes": plain_bytes,
-           "plain_peak_gb": ref["bfloat16"][3]}
+           "plain_state_bytes": plain_bytes, "plain_peak_gb": plain_peak}
     with tempfile.TemporaryDirectory() as work:
         torch.save(start, os.path.join(work, "start.pt"))
         del start
@@ -3023,6 +3255,31 @@ def phase_mesh2d(dev, tr, where) -> dict:
                  for r in (0, 1)]
     assert [r["place"] for r in ranks] == [(0, 0), (0, 1)], ranks
     like = model.state_dict()
+    on_card = dev.type == "cuda"
+
+    def vs_plain(plain_ref, got, what) -> dict:
+        """One mesh train step (both ranks' `got`) against its plain step
+        and a rounding-only change of it."""
+        # the plain side's regularizer accumulators are not compared
+        snap, plain, alt = (
+            {k: v for k, v in d.items() if not k.startswith("reg.")}
+            for d in (plain_ref[0], plain_ref[1][1], plain_ref[2][1]))
+        plain, alt = (plain_ref[1][0], plain), (plain_ref[2][0], alt)
+        assert got[0]["metrics"] == got[1]["metrics"], what
+        after = unshard_snapshot([g["after"] for g in got], like,
+                                 MESH2D_MIN_SIZE)
+        res = {"rounding_only": dp_deviation(snap, plain, alt),
+               "vs_plain": dp_deviation(snap, plain,
+                                        (got[0]["metrics"], after))}
+        check_dp_deviation(res["vs_plain"], res["rounding_only"], what)
+        if on_card:
+            for g in got:
+                for key in TRAIN_COUNTERS:
+                    assert g["launches"][key] == 1, (what, key,
+                                                     g["launches"])
+        res["launches"] = got[0]["launches"]
+        return res
+
     for dtype in ("bfloat16", "float32"):
         snap, plain, alt, _ = ref[dtype]
         r0, r1 = ranks[0][dtype], ranks[1][dtype]
@@ -3046,6 +3303,23 @@ def phase_mesh2d(dev, tr, where) -> dict:
                   if not torch.equal(r0["after_2d"][k], r1["after_2d"][k])]
         assert not differ, f"replicated tensors differ across the model " \
             f"group ({dtype}): {differ[:5]}"
+        # (a) the validate step: the same counts and predictions on both
+        # model ranks, each pixel once, against the plain validate step
+        v0, v1 = r0["validate"], r1["validate"]
+        assert torch.equal(v0["hist"], v1["hist"]), dtype
+        assert torch.equal(v0["preds"], v1["preds"]), dtype
+        assert v0["terms"] == v1["terms"], dtype
+        res["validate"] = check_mesh_validate(v0, ref_val[dtype], batch,
+                                              dtype)
+        res["validate"]["launches"] = v0["launches"]
+        # (c) EWC on the mesh: the penalty summed over the shards
+        res["ewc"] = vs_plain(ref_ewc[dtype], [r0["ewc"], r1["ewc"]],
+                              f"EWC on the 1 x 2 mesh, {dtype}")
+        l_reg, l_plain = (r0["ewc"]["metrics"]["l_reg"],
+                          ref_ewc[dtype][1][0]["l_reg"])
+        assert l_plain > 0 and abs(l_reg - l_plain) <= DP_VS_PLAIN[0] * \
+            l_plain, (dtype, l_reg, l_plain)
+        res["ewc"].update(l_reg=l_reg, l_reg_plain=l_plain)
         res.update(replicated_tensors_bit_equal=len(replicated),
                    sharded_tensors=len(sharded),
                    launches=r0["launches"],
@@ -3056,38 +3330,65 @@ def phase_mesh2d(dev, tr, where) -> dict:
                    metrics_plain=plain[0])
         if dtype == "bfloat16":
             res["step_s_2d"] = [r["step_s_2d"] for r in (r0, r1)]
-            for r in (r0, r1) if dev.type == "cuda" else ():
+            # (b) nan_guard: a NaN on model rank 1 only, both ranks skip
+            for r in (r0, r1):
+                ng = r["nan_guard"]
+                assert ng["nonfinite"] == 1 and not ng["changed"] \
+                    and ng["kept"] > 0, ng
+            res["nan_guard"] = {k: r0["nan_guard"][k] for k in (
+                "kept", "nonfinite", "loss_tot", "launches")}
+            for r in (r0, r1) if on_card else ():
                 for key in TRAIN_COUNTERS + ("contrastive_pass1_mma",
                                              "contrastive_pass2_mma",
                                              "contrastive_bwd_mma"):
                     assert r["launches"][key] == 1, (key, r["launches"])
                 assert r["launches"]["fused_argmax"] == 0, r["launches"]
+                v = r["validate"]["launches"]
+                assert v["fused_loss_fwd"] == v["fused_argmax"] == 1, v
+                for key in TRAIN_COUNTERS:
+                    assert r["nan_guard"]["launches"][key] == 1, (
+                        key, r["nan_guard"])
         out[dtype] = res
+    # (d) bf16_norm on the mesh
+    out["bf16_norm"] = {dtype: vs_plain(
+        ref_bn[dtype], [r["bf16_norm"][dtype] for r in ranks],
+        f"bf16_norm on the 1 x 2 mesh, {dtype}")
+        for dtype in ("bfloat16", "float32")}
     b, f = out["bfloat16"], out["float32"]
+    bn_b, bn_f = out["bf16_norm"]["bfloat16"], out["bf16_norm"]["float32"]
+    # every launch of the bf16 mesh sides: validate, train, nan_guard,
+    # EWC and bf16_norm steps
+    out["launches"] = {k: sum(side["launches"][k] for side in (
+        b["validate"], b, b["nan_guard"], b["ewc"], bn_b))
+        for k in b["launches"]}
+
+    def errs(d):
+        return ", ".join(f"{d[k]:.3g}" for k in (
+            "terms_rel_err", "update_rel_err", "worst_update_err"))
+
     log(f"[mesh2d] two gloo ranks on one card, UCD VOC 15-5s step 1, "
         f"{cfg.backbone}, batch {BATCH}, {SIZE}x{SIZE}, on {where}; against the "
         f"plain step (terms, update, worst tensor): 1-D bf16 "
-        + ", ".join(f"{b['1d_vs_plain'][k]:.3g}" for k in (
-            "terms_rel_err", "update_rel_err", "worst_update_err"))
-        + ", f32 " + ", ".join(f"{f['1d_vs_plain'][k]:.3g}" for k in (
-            "terms_rel_err", "update_rel_err", "worst_update_err"))
-        + "; 1 x 2 mesh bf16 " + ", ".join(
-            f"{b['2d_vs_plain'][k]:.3g}" for k in (
-                "terms_rel_err", "update_rel_err", "worst_update_err"))
-        + ", f32 " + ", ".join(f"{f['2d_vs_plain'][k]:.3g}" for k in (
-            "terms_rel_err", "update_rel_err", "worst_update_err"))
-        + "; rounding-only bf16 " + ", ".join(
-            f"{b['rounding_only'][k]:.3g}" for k in (
-                "terms_rel_err", "update_rel_err", "worst_update_err"))
-        + ", f32 " + ", ".join(f"{f['rounding_only'][k]:.3g}" for k in (
-            "terms_rel_err", "update_rel_err", "worst_update_err"))
-        + f"; {b['sharded_tensors']} sharded tensors, "
+        f"{errs(b['1d_vs_plain'])}, f32 {errs(f['1d_vs_plain'])}; 1 x 2 "
+        f"mesh bf16 {errs(b['2d_vs_plain'])}, f32 {errs(f['2d_vs_plain'])}"
+        f"; rounding-only bf16 {errs(b['rounding_only'])}, f32 "
+        f"{errs(f['rounding_only'])}; EWC on the mesh bf16 "
+        f"{errs(b['ewc']['vs_plain'])}, f32 {errs(f['ewc']['vs_plain'])} "
+        f"(rounding-only {errs(b['ewc']['rounding_only'])}, "
+        f"{errs(f['ewc']['rounding_only'])}; l_reg {b['ewc']['l_reg']:.6g} "
+        f"vs {b['ewc']['l_reg_plain']:.6g}); bf16_norm on the mesh bf16 "
+        f"{errs(bn_b['vs_plain'])}, f32 {errs(bn_f['vs_plain'])} "
+        f"(rounding-only {errs(bn_b['rounding_only'])}, "
+        f"{errs(bn_f['rounding_only'])}); validate on the mesh "
+        f"bf16 {json.dumps(b['validate'])}, f32 {json.dumps(f['validate'])}"
+        f"; nan_guard: {b['nan_guard']['kept']} tensors kept their bits on "
+        f"both ranks; {b['sharded_tensors']} sharded tensors, "
         f"{b['replicated_tensors_bit_equal']} replicated ones bit-equal on "
         f"both ranks; state bytes a rank {b['state_bytes']} against "
         f"{plain_bytes} plain; peak GB {b['peak_gb']} (plain "
         f"{out['plain_peak_gb']}); s a step 1-D {b['step_s_1d']}, 2-D "
-        f"{b['step_s_2d']}; launches {json.dumps(b['launches'])}; ranks "
-        f"{out['ranks_s']:.1f} s")
+        f"{b['step_s_2d']}; launches (all bf16 mesh sides) "
+        f"{json.dumps(out['launches'])}; ranks {out['ranks_s']:.1f} s")
     restore(state, model, entry)
     return out
 
@@ -3833,7 +4134,7 @@ def main(argv=None) -> int:
     log(json.dumps({"options": {"card": where, **options}}))
     log(json.dumps({"mesh2d": mesh2d}))
     exp_counts = experiment["launches"]
-    mesh_counts = mesh2d["bfloat16"]["launches"]
+    mesh_counts = mesh2d["launches"]
     opt_counts = options["launches"]
 
     kernels = [{

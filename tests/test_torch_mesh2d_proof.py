@@ -15,9 +15,13 @@ collectives' tally (ucd_torch/parallel/collectives.py `tally`) shows
      parameters + momentum + donor (JAX: 0.50), the donor shell's own
      tensors counted on the rank.
 
-The mesh's refusals (a world of another size; GroupNorm ABN, the five
-execution options, nan_guard, the regularizers and the validate step,
-which it does not run yet) are named errors.
+A regularizer's state that `build_train_state(..., mesh=...)` makes from
+the shards is the whole-built state's shards, bit for bit (RW's penalty
+weights normalized by each whole tensor's min and max). The mesh's one
+refusal (a world of another size) is a named error, and what it once
+refused (GroupNorm ABN, the five execution options, nan_guard, the
+regularizers and the validate step) builds. On a 1 x 2 mesh the validate
+step counts each pixel once.
 """
 
 import functools
@@ -30,7 +34,9 @@ import torch_dp_workers as W
 import torch_mesh2d_workers as M
 from torch_port_helpers import one_torch_thread  # noqa: F401 (fixture)
 from ucd_torch import parallel as P
+from ucd_torch.engine.metrics import empty_confusion
 from ucd_torch.engine.state import shard_state
+from ucd_torch.engine.train import make_eval_step
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -105,8 +111,59 @@ def test_a_rank_holds_about_half_the_state(proof):
 
 
 def test_the_mesh_refuses_what_it_does_not_run(proof):
+    """A world of another size is refused; what the mesh once refused
+    builds."""
     want = ["size", "remat", "remat_early", "stem_s2d", "bf16_norm",
             "bf16_norm_early", "gn", "nan_guard", "validate", "regularizer"]
     for r in proof[0]:
         assert [w for w, _ in r["refusals"]] == want, r["refusals"]
         assert "3 x 2 mesh needs 6 ranks" in r["refusals"][0][1]
+        assert all(msg is None for _, msg in r["refusals"][1:]), \
+            r["refusals"]
+
+
+def test_the_mesh_builds_the_regularizer_state_from_shards(proof):
+    full = M.rw_state()
+    for r in proof[0]:
+        _, m = r["place"]
+        assert r["reg"]["sharded"] == sorted(
+            k for k, dim in P.channel_sharding(
+                N_MODEL, full.old_params, MIN_SIZE).items()
+            if dim is not None)
+        assert r["reg"]["sharded"]
+        for field in W.REG_FIELDS:
+            tree = getattr(full, field)
+            assert (tree is None) == (r["reg"][field] is None), field
+            if tree is None:
+                continue
+            mine = shard_state(tree, N_MODEL, m, MIN_SIZE)
+            assert set(mine) == set(r["reg"][field]), field
+            for k, v in mine.items():
+                assert torch.equal(r["reg"][field][k], v), (field, k)
+
+
+def test_a_1x2_mesh_validates_each_pixel_once(tmp_path):
+    """The validate step's confusion counts sum over the data group: on a
+    1 x 2 mesh its total is the batch's labelled pixels (a sum over the
+    world would count each twice), and it is the one-process step's up
+    to the pixels whose near-tied predictions differ (float32)."""
+    W.run_ranks(M.eval_1x2_worker, 2, tmp_path, str(tmp_path))
+    got = [torch.load(tmp_path / f"eval{r}.pt") for r in (0, 1)]
+    cfg, model, model_old, _, old = M.proof_start()
+    batch = M.proof_batch(cfg)
+    hist, losses, preds = make_eval_step(cfg, model, model_old,
+                                         device="cpu")(
+        None, batch, empty_confusion(cfg.tot_classes, "cpu"), old)
+    labels = batch["label"]
+    labelled = int((labels < cfg.tot_classes).sum())
+    for r in got:
+        assert int(r["hist"].sum()) == labelled == labels.size
+        assert torch.equal(r["hist"], got[0]["hist"])
+        assert torch.equal(r["preds"], got[0]["preds"])
+        assert r["losses"] == got[0]["losses"]
+        n_mism = int((r["preds"] != preds).sum())
+        assert n_mism <= 1e-3 * labels.size, n_mism
+        assert int((r["hist"] - hist).abs().sum()) <= 2 * n_mism
+        for k, v in losses.items():
+            np.testing.assert_allclose(r["losses"][k], float(v), rtol=1e-5,
+                                       err_msg=k)

@@ -53,20 +53,29 @@ def _entry(rank, world, rdzv, fn, args):
         P.shutdown()
 
 
-def run_ranks(fn, world, tmp_path, *args):
-    """Run fn(rank, *args) in `world` spawned processes joined in a gloo
-    group; raises if any of them fails."""
+def start_ranks(fn, world, tmp_path, *args):
+    """Start fn(rank, *args) in `world` spawned processes joined in a gloo
+    group, and return at once: the processes' context, whose `join()`
+    returns True once all have ended and raises if any of them failed."""
     rdzv = f"file://{tmp_path}/rdzv_{fn.__name__}"
     prev = os.environ.get("OMP_NUM_THREADS")
     os.environ["OMP_NUM_THREADS"] = "1"
     try:
-        mp.spawn(_entry, args=(world, rdzv, fn, args), nprocs=world,
-                 join=True)
+        return mp.spawn(_entry, args=(world, rdzv, fn, args), nprocs=world,
+                        join=False)
     finally:
         if prev is None:
             os.environ.pop("OMP_NUM_THREADS")
         else:
             os.environ["OMP_NUM_THREADS"] = prev
+
+
+def run_ranks(fn, world, tmp_path, *args):
+    """Run fn(rank, *args) in `world` spawned processes joined in a gloo
+    group; raises if any of them fails."""
+    ranks = start_ranks(fn, world, tmp_path, *args)
+    while not ranks.join():
+        pass
 
 
 # ---------------------------------------------------------------------------

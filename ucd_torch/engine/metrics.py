@@ -18,20 +18,23 @@ from ..parallel.collectives import all_reduce_sum_
 
 def confusion_matrix_update(hist: torch.Tensor, labels: torch.Tensor,
                             preds: torch.Tensor, n_classes: int,
-                            all_ranks: bool = False) -> torch.Tensor:
+                            all_ranks: bool = False,
+                            group=None) -> torch.Tensor:
     """hist[i, j] += #pixels with (true == i, pred == j), over pixels whose
     label is in [0, n_classes). An exact int64 `torch.bincount` of
     label * n + pred (the JAX package's one-hot contraction is its answer
     to the TPU's slow scatter-add). With `all_ranks`, the batch's counts
-    are summed over the process group first (each process holds its shard
-    of the global batch). Returns the new matrix."""
+    are summed over the processes of `group` first (each holds its shard
+    of the global batch): the world by default, the data group on a 2-D
+    mesh, whose model ranks hold the same shard. Returns the new
+    matrix."""
     lab = labels.reshape(-1).long()
     prd = preds.reshape(-1).long()
     valid = (lab >= 0) & (lab < n_classes)
     idx = lab[valid] * n_classes + prd[valid]
     counts = torch.bincount(idx, minlength=n_classes * n_classes)
     if all_ranks:
-        all_reduce_sum_(counts)
+        all_reduce_sum_(counts, group)
     return hist + counts.view(n_classes, n_classes).to(hist.dtype)
 
 

@@ -12,13 +12,15 @@ Counterpart of ucd_tpu/engine/state.py:
   * inside a process group, every process's state is process 0's;
   * on a 2-D data x model mesh (ucd_torch/parallel/mesh.py), each rank
     then keeps its channel shard of every wide tensor (`channel_sharding`)
-    of the model, the momentum and the donor's variables, as the JAX
-    package's `channel_sharding` places them (`shard_state`;
-    `unshard_state` puts the shards of a model group back together).
+    of the model, the momentum, the donor's variables and the
+    regularizer's trees, as the JAX package's `channel_sharding` places
+    them (`shard_state`; `unshard_state` and `unshard_reg_state` put the
+    shards of a model group back together).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Mapping, Optional, Sequence
 
 import torch
@@ -94,6 +96,20 @@ def unshard_state(shards: Sequence[Mapping[str, torch.Tensor]],
     return out
 
 
+def unshard_reg_state(states: Sequence[R.RegState],
+                      like: Mapping[str, Any], min_size: int = 256
+                      ) -> R.RegState:
+    """The full regularizer state of a model group's states (`states[i]`
+    model rank i's): every tree put back together by `unshard_state`."""
+    out = dataclasses.replace(states[0], sharded=frozenset(), group=None)
+    for f in R.TREE_FIELDS:
+        trees = [getattr(rs, f) for rs in states]
+        if trees[0] is not None:
+            setattr(out, f, unshard_state(
+                trees, {k: like[k] for k in trees[0]}, min_size))
+    return out
+
+
 @torch.no_grad()
 def shard_module_(model: torch.nn.Module, mesh, min_size: int = 256):
     """Replace each wide parameter and buffer of `model` by this rank's
@@ -153,7 +169,9 @@ def build_train_state(cfg: Config, model, generator: torch.Generator,
     * on a 2-D `mesh` (parallel/mesh.py `make_mesh_2d`): the full state
       as above, then this rank's channel shards of the model, the donor's
       variables and the momentum (`channel_sharding` at `min_size`, the
-      JAX package's default 256). A regularizer is refused there.
+      JAX package's default 256) and of every tree of a regularizer's
+      state, as the JAX package's `channel_sharding` shards a whole-built
+      state.
     """
     dev = resolve_device(device)
     model.init_weights(generator)
@@ -199,17 +217,24 @@ def build_train_state(cfg: Config, model, generator: torch.Generator,
 def shard_train_state(state: TrainState, old_vars: Optional[Mapping], mesh,
                       min_size: int = 256):
     """Put a full train state on the 2-D `mesh`: this rank keeps its shards
-    of the model (`shard_module_`), of the momentum and of the donor's
-    variables. Returns (state, old_vars); build the train step after. A
-    regularizer's state is refused."""
-    if state.reg_state is not None:
-        raise NotImplementedError(
-            "the regularizers (EWC / PI / RW) do not run on the 2-D mesh "
-            "yet")
+    of the model (`shard_module_`), of the momentum, of the donor's
+    variables and of every tree of the regularizer's state (its penalty
+    weights as they were normalized whole). Returns (state, old_vars);
+    build the train step after."""
     shard_module_(state.model, mesh, min_size)
     state.opt_state["trace"] = shard_state(
         state.opt_state["trace"], mesh.n_model, mesh.model_index, min_size)
     if old_vars is not None:
         old_vars = shard_state(old_vars, mesh.n_model, mesh.model_index,
                                min_size)
+    rs = state.reg_state
+    if rs is not None:
+        for f in R.TREE_FIELDS:
+            tree = getattr(rs, f)
+            if tree is not None:
+                setattr(rs, f, shard_state(tree, mesh.n_model,
+                                           mesh.model_index, min_size))
+        rs.sharded = frozenset(k for k in rs.old_params
+                               if k in state.model.sharded)
+        rs.group = mesh.model_group
     return state, old_vars

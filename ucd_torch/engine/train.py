@@ -113,13 +113,17 @@ class Optimizer:
     whole by a select on the device (params, momentum and count unchanged,
     `nonfinite` incremented; the update after MAX_CONSECUTIVE_NONFINITE
     skips in a row is applied anyway; a finite one resets `nonfinite`):
-    optax.apply_if_finite(max_consecutive_errors=100)."""
+    optax.apply_if_finite(max_consecutive_errors=100). On a 2-D mesh,
+    where a rank updates its shards only, `group` is its model group: the
+    finite test then reads every shard of the group's gradients, so the
+    group's ranks skip or apply together."""
 
-    def __init__(self, cfg: Config, total_iters: int):
+    def __init__(self, cfg: Config, total_iters: int, group=None):
         self.sched = make_lr_schedule(cfg, total_iters)
         self.weight_decay = cfg.weight_decay
         self.momentum = cfg.momentum
         self.nan_guard = bool(cfg.nan_guard)
+        self.group = group
 
     def init(self, params: Mapping[str, torch.Tensor]) -> Dict[str, Any]:
         device = next(iter(params.values())).device
@@ -151,9 +155,13 @@ class Optimizer:
             torch._foreach_sub_(p, g)
             count.add_(1)
             return
-        # max |g| per tensor is finite iff the tensor is
-        finite = torch.stack(torch._foreach_norm(
-            g0, ord=float("inf"))).isfinite().all()
+        # max |g| is finite iff every tensor is
+        gmax = torch.stack(torch._foreach_norm(g0, ord=float("inf"))).max()
+        if self.group is not None:
+            # NaN as inf: a MAX reduction may drop a NaN, never an inf
+            gmax = P.all_reduce_max_(
+                torch.where(gmax.isnan(), float("inf"), gmax), self.group)
+        finite = gmax.isfinite()
         nonfinite = opt_state["nonfinite"]
         nonfinite.copy_(torch.where(finite, 0, nonfinite + 1))
         apply = finite | (nonfinite > MAX_CONSECUTIVE_NONFINITE)
@@ -167,8 +175,8 @@ class Optimizer:
         count.add_(apply)
 
 
-def make_optimizer(cfg: Config, total_iters: int) -> Optimizer:
-    return Optimizer(cfg, total_iters)
+def make_optimizer(cfg: Config, total_iters: int, group=None) -> Optimizer:
+    return Optimizer(cfg, total_iters, group)
 
 
 def _fused_gate(cfg: Config, sem_shape, label_shape, old_shape, device):
@@ -361,19 +369,16 @@ def _make_core(cfg: Config, model, model_old, total_iters: int,
     step_idx = cfg.step if step_idx is None else step_idx
     if cfg.dataset == "city_domain":
         step_idx = 0  # single fixed head keeps training (domain-incremental)
-    tx = make_optimizer(cfg, total_iters)
     has_old = model_old is not None
     # the contrastive term reads the attended pre_logits of both models
     need_att = (cfg.loss_de > 0 or cfg.contrastive) and has_old
     mesh = getattr(model, "mesh", None)
-    data_group = None
+    data_group = model_group = None
     if mesh is not None:
-        if cfg.nan_guard:
-            raise NotImplementedError(
-                "nan_guard does not run on the 2-D mesh yet")
-        data_group = mesh.data_group
+        data_group, model_group = mesh.data_group, mesh.model_group
         if has_old:
             use_mesh(model_old, mesh)
+    tx = make_optimizer(cfg, total_iters, model_group)
 
     mask = trainable_mask(
         [n for n, _ in model.named_parameters()], step_idx,
@@ -417,7 +422,8 @@ def _make_core(cfg: Config, model, model_old, total_iters: int,
         # inside a process group: the global batch's gradient, before the
         # regularizer's accumulators read it (the JAX step's EWC/PI/RW see
         # the global gradient) and before nan_guard's finite test (every
-        # process then decides alike)
+        # process then decides alike; on a 2-D mesh the data group's ranks
+        # from here, the model group's by the test's own reduction)
         if mesh is not None:
             # a shard's gradient over the ranks that hold that shard; a
             # replicated tensor's, the same on every model rank, over the
@@ -663,16 +669,25 @@ def make_eval_step(cfg: Config, model, model_old=None, device=None):
     (hist, {"loss", "lkd", "lde"}, preds). `variables` is a state_dict to
     evaluate `model` on, or None for the model's own tensors. Inside a
     process group `batch` is this process's shard: the confusion counts
-    and the losses are the global batch's (`preds` this process's). A
-    model on a 2-D mesh is refused: the validate step stays off it, as in
-    the JAX package."""
+    and the losses are the global batch's (`preds` this process's).
+
+    On a 2-D mesh, as the JAX step runs unchanged on channel-sharded
+    variables, `variables` and `old_vars` are this rank's shards (the
+    donor shell is put on the mesh, as in the train step), `batch` is the
+    data group's shard, and the forward carries the model axis: every
+    model rank of a data shard holds the whole low-res logits and computes
+    the same `preds`, so the confusion counts and the losses are summed
+    over the data group only, each pixel once."""
     _check_cfg(cfg)
-    if getattr(model, "mesh", None) is not None:
-        raise NotImplementedError(
-            "the validate step does not run on the 2-D mesh")
     dev = _step_device(device, model, model_old)
     has_old = model_old is not None
     n_classes = cfg.tot_classes
+    mesh = getattr(model, "mesh", None)
+    data_group = None
+    if mesh is not None:
+        data_group = mesh.data_group
+        if has_old:
+            use_mesh(model_old, mesh)
     if has_old:
         model_old.eval()
 
@@ -729,9 +744,10 @@ def make_eval_step(cfg: Config, model, model_old=None, device=None):
 
         # inside a process group, the global batch's counts and losses
         hist = confusion_matrix_update(hist, labels, preds, n_classes,
-                                       all_ranks=P.is_distributed())
+                                       all_ranks=P.is_distributed(),
+                                       group=data_group)
         losses = P.reduce_metrics({"loss": loss, "lkd": lkd, "lde": lde},
-                                  ("loss", "lkd", "lde"))
+                                  ("loss", "lkd", "lde"), data_group)
         return hist, losses, preds
 
     return eval_step

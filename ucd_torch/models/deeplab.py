@@ -16,7 +16,8 @@ holds the four branches' slices: `map_bn`'s shard is those channels
 (`MAP_BN_GROUPS` groups of the unsharded concatenation, a slice of each;
 engine/state.py `shard_rows`), and the gathered concatenation, in rank
 order, meets `red_conv`'s weight with its input channels permuted to
-match. Where only `map_bn` is sharded, the whole concatenation is split.
+match (a GroupNorm `map_bn` is told that its shard holds MAP_BN_GROUPS
+runs). Where only `map_bn` is sharded, the whole concatenation is split.
 The head takes the body's features whole (models/segmentation.py gathers
 them once for the head and the attention maps).
 """
@@ -86,10 +87,10 @@ class DeeplabV3(nn.Module):
         xs = copy_to_model(x, group) if branches_sharded else x
         out = torch.cat([self.map_conv0(xs), self.map_conv1(xs),
                          self.map_conv2(xs), self.map_conv3(xs)], dim=1)
-        channels = self.map_bn.bn.num_features
-        if self.map_bn.bn.weight.shape[0] < out.shape[1]:
+        channels = self.map_bn.channels
+        if self.map_bn.norm.weight.shape[0] < out.shape[1]:
             out = scatter_to_model(out, group)
-        out = self.map_bn(out)
+        out = self.map_bn(out, MAP_BN_GROUPS if branches_sharded else 1)
         if branches_sharded:
             # rank-major gathered channels meet the matching weight columns
             out = whole(out, channels, group)

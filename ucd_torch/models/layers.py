@@ -37,7 +37,10 @@ shard of the per-channel parameters and statistics, so an activation is
 either whole (every model rank computes it alike) or this rank's channel
 shard; its channel count tells which. `conv_input` makes a conv's input
 from either, and BatchNorm statistics, local to a channel, combine over
-the data group only.
+the data group only. A GroupNorm ABN normalizes its shard alone where the
+shard holds whole groups, and else gathers its input and normalizes it
+whole (`ABN._group_norm`). Rematerialized blocks re-run their model-axis
+gathers in the recompute; the statistics still move once.
 """
 
 from __future__ import annotations
@@ -302,7 +305,12 @@ class ABN(nn.Module):
 
     `norm_type='gn'` is GroupNorm with min(gn_groups, channels) groups, eps
     1e-5 and wide parameters under `gn` (flax's `gn/scale`, `gn/bias`); it
-    has no running statistics."""
+    has no running statistics.
+
+    On the 2-D mesh (`mesh`) the ABN may hold a channel shard of its
+    parameters and take that shard of its input."""
+
+    mesh = None
 
     def __init__(self, channels: int, activation: str = "leaky_relu",
                  activation_param: float = 0.01,
@@ -314,6 +322,7 @@ class ABN(nn.Module):
             raise ValueError(f"unknown activation {activation!r}")
         if norm_type not in ("bn", "gn"):
             raise ValueError(f"unknown norm_type {norm_type!r}")
+        self.channels = channels
         self.activation = activation
         self.activation_param = activation_param
         self.dtype = dtype
@@ -328,10 +337,18 @@ class ABN(nn.Module):
             self.bn = BatchNorm2d(channels, eps=1e-5, momentum=0.1,
                                   dtype=self.wide)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    @property
+    def norm(self) -> nn.Module:
+        """The norm module (`bn` or `gn`)."""
+        return self.gn if self.norm_type == "gn" else self.bn
+
+    def forward(self, x: torch.Tensor, runs: int = 1) -> torch.Tensor:
+        """`runs`: on the mesh, how many contiguous runs of the unsharded
+        channels a shard holds (the ASPP's `map_bn` over sharded branches
+        holds a slice of each, models/deeplab.py); 1 elsewhere."""
         rounded = self.norm_dtype is not None and self.norm_dtype != self.wide
         if self.norm_type == "gn":
-            y = self.gn(x.to(self.wide))
+            y = self._group_norm(x.to(self.wide), runs)
         elif rounded and x.dtype == self.norm_dtype:
             # torch's mixed-dtype batch_norm (CUDA, and the CPU's) takes the
             # narrow input with wide weights and statistics, computes in
@@ -347,6 +364,31 @@ class ABN(nn.Module):
         elif self.activation == "elu":
             y = F.elu(y, self.activation_param, inplace=True)
         return y.to(self.dtype)
+
+    def _group_norm(self, x: torch.Tensor, runs: int) -> torch.Tensor:
+        """GroupNorm of `x`, whole or this rank's channel shard. A shard
+        that holds whole groups (each run a multiple of the group size) is
+        normalized alone; else the shards are gathered, normalized whole
+        in the unsharded channel order, and this rank keeps its channels
+        (the gradient of the whole input, partial on each rank, is summed
+        over the model group before each rank takes its slice)."""
+        gn = self.gn
+        c, channels = gn.weight.shape[0], gn.num_channels
+        if c == channels:
+            return gn(x)
+        size = channels // gn.num_groups
+        if (c // runs) % size == 0:
+            return F.group_norm(x, c // size, gn.weight, gn.bias, gn.eps)
+        group = self.mesh.model_group
+        xw = copy_to_model(gather_from_model(x, group), group)
+        # the gathered channels are rank-major (rank, run, slice)
+        idx = torch.arange(channels, device=x.device).view(
+            runs, self.mesh.n_model, -1)
+        xw = xw.index_select(1, idx.transpose(0, 1).reshape(-1).argsort())
+        y = F.group_norm(xw, gn.num_groups, eps=gn.eps).index_select(
+            1, idx[:, self.mesh.model_index].reshape(-1))
+        shape = (1, c, 1, 1)
+        return y * gn.weight.view(shape) + gn.bias.view(shape)
 
 
 class Conv2d(nn.Conv2d):
@@ -405,23 +447,7 @@ def use_mesh(model: nn.Module, mesh) -> nn.Module:
     `shard_module_`, or a donor shell evaluated on sharded variables) on
     the 2-D mesh `mesh`: every module that carries the model axis reads
     `mesh`, and every BatchNorm combines its statistics over the data
-    group. Raises NotImplementedError for what the mesh does not run yet:
-    GroupNorm ABN, a bf16 `norm_dtype` and the body's remat and S2D stem
-    options."""
-    for name, m in model.named_modules():
-        if isinstance(m, ABN) and m.norm_type == "gn":
-            raise NotImplementedError(
-                f"{name}: GroupNorm ABN does not run on the 2-D mesh yet")
-        if isinstance(m, ABN) and m.norm_dtype is not None:
-            raise NotImplementedError(
-                f"{name}: bf16_norm / bf16_norm_early do not run on the "
-                f"2-D mesh yet")
-        if getattr(m, "remat_blocks", None):
-            raise NotImplementedError(
-                "remat / remat_early do not run on the 2-D mesh yet")
-        if getattr(m, "stem_s2d", False):
-            raise NotImplementedError(
-                "stem_s2d does not run on the 2-D mesh yet")
+    group. Every execution option and norm of the model runs there."""
     for m in model.modules():
         if isinstance(m, BatchNorm2d):
             m.group = mesh.data_group

@@ -17,17 +17,30 @@ accumulators (fisher / score / delta) that the checkpoint keeps; at step
 k+1 `init_reg_state` turns them into the (optionally min-max normalized)
 penalty weights against the donor's parameters. `export_full` /
 `restore_full` carry the in-flight accumulators across a same-step resume.
+
+On the 2-D data x model mesh (ucd_torch/parallel/mesh.py) every tree holds
+this rank's shards, cut as the parameters are (engine/state.py), and the
+state names the sharded leaves (`sharded`) and the model group (`group`).
+The accumulators and the penalty's gradient are elementwise, so they stay
+shard-local; the penalty's value, which reads every whole leaf, sums the
+sharded leaves' partial sums over the model group (one all-reduce; a
+replicated leaf counts once). The penalty weights are normalized whole,
+before the state is sharded.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Mapping, Optional
+from typing import AbstractSet, Any, Dict, Mapping, Optional
 
 import torch
 
+from ..parallel.collectives import all_reduce_sum_
+
 EPS = 1e-8
 MEMBER_FIELDS = ("fisher", "delta", "score", "prev_params", "saved_score")
+# every tree of the state
+TREE_FIELDS = MEMBER_FIELDS + ("penalty_w", "old_params")
 
 Tree = Dict[str, torch.Tensor]
 
@@ -43,7 +56,8 @@ class RegState:
     """The regularizer's state. The dicts hold every parameter of the
     model; `count` is a 0-d int64 tensor beside them. `saved_mask` names the
     parameters present in the previous step's score (RW's export averages
-    only those)."""
+    only those). On the 2-D mesh the dicts hold this rank's shards,
+    `sharded` names the sharded leaves and `group` is the model group."""
     kind: str
     alpha: float = 0.9
     iterations: int = 10
@@ -57,6 +71,8 @@ class RegState:
     old_params: Optional[Tree] = None    # θ_old, the penalty's anchor
     saved_score: Optional[Tree] = None   # previous step's score (PI / RW)
     saved_mask: Optional[Dict[str, bool]] = None
+    sharded: AbstractSet[str] = frozenset()
+    group: Any = None
 
 
 def _clone(tree: Mapping[str, torch.Tensor]) -> Tree:
@@ -216,9 +232,20 @@ def _diffs(state: RegState, params) -> tuple:
     return names, d, [state.penalty_w[k] for k in names]
 
 
-def _penalty_value(d, w) -> torch.Tensor:
+def _penalty_value(state: RegState, names, d, w) -> torch.Tensor:
     wd2 = torch._foreach_mul(w, torch._foreach_mul(d, d))
-    return torch.stack([x.sum() for x in wd2]).sum()
+    sums = [x.sum() for x in wd2]
+    if state.group is None:
+        return torch.stack(sums).sum()
+    # the sharded leaves' partial sums over the model group, once
+    part = [s for k, s in zip(names, sums) if k in state.sharded]
+    rest = [s for k, s in zip(names, sums) if k not in state.sharded]
+    total = torch.zeros_like(sums[0])
+    if part:
+        total = all_reduce_sum_(torch.stack(part).sum(), state.group)
+    if rest:
+        total = total + torch.stack(rest).sum()
+    return total
 
 
 @torch.no_grad()
@@ -227,8 +254,8 @@ def penalty(state: Optional[RegState], params) -> Optional[torch.Tensor]:
     penalized."""
     if state is None or not state.penalize:
         return None
-    _, d, w = _diffs(state, params)
-    return _penalty_value(d, w)
+    names, d, w = _diffs(state, params)
+    return _penalty_value(state, names, d, w)
 
 
 @torch.no_grad()
@@ -241,7 +268,8 @@ def penalty_and_grad(state: Optional[RegState], params,
     names, d, w = _diffs(state, params)
     grad = torch._foreach_mul(w, 2.0 * importance)
     torch._foreach_mul_(grad, d)
-    return importance * _penalty_value(d, w), dict(zip(names, grad))
+    return (importance * _penalty_value(state, names, d, w),
+            dict(zip(names, grad)))
 
 
 def penalty_grad(state: Optional[RegState], params, importance: float):
@@ -320,7 +348,7 @@ def state_tensors(state: Optional[RegState]) -> list:
     if state is None:
         return []
     out = [state.count]
-    for f in MEMBER_FIELDS + ("penalty_w", "old_params"):
+    for f in TREE_FIELDS:
         tree = getattr(state, f)
         if tree is not None:
             out += list(tree.values())

@@ -3,6 +3,7 @@ the 1-D data axis and the 2-D data x model mesh (counterpart of
 ucd_tpu/parallel)."""
 
 from .collectives import (
+    all_reduce_max_,
     all_reduce_mean_,
     all_reduce_sum_,
     barrier,
@@ -37,7 +38,8 @@ from .mesh import (
 )
 
 __all__ = ["DATA_AXIS", "DataMesh", "MODEL_AXIS", "Mesh2D",
-           "all_reduce_mean_", "all_reduce_sum_", "barrier", "broadcast_",
+           "all_reduce_max_", "all_reduce_mean_", "all_reduce_sum_",
+           "barrier", "broadcast_",
            "channel_sharding", "copy_to_model", "gather_from_model",
            "gather_rows", "init_group", "is_distributed", "local_batch_size",
            "make_mesh_2d", "make_mesh_2d_hybrid", "make_mesh_multiprocess",

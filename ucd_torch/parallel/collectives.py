@@ -14,7 +14,9 @@ calls these explicitly, each where the global-batch math needs it:
   * `reduce_metrics`: the step's loss metrics (engine/train.py,
     engine/experiment.py);
   * `all_reduce_sum_`: the confusion matrix (engine/metrics.py) and
-    BatchNorm's backward sums.
+    BatchNorm's backward sums;
+  * `all_reduce_max_`: on the 2-D mesh, `nan_guard`'s finite test
+    (engine/train.py) over a model group.
 
 Each takes a `group` (a subgroup of torch.distributed); the default is
 the world. On the 2-D data x model mesh (parallel/mesh.py) the data
@@ -29,6 +31,11 @@ inverse (models/resnet.py, models/deeplab.py):
     ranks each hold a partial gradient of their common input;
   * `scatter_to_model`: this rank's channel slice of a whole tensor; its
     backward gathers the gradient.
+
+The three keep only the group and shapes in their autograd context, so
+a rematerialized block (models/layers.py `remat_contexts`) re-runs them
+in its recompute as in its first run: every rank recomputes the same
+blocks in the same order, and so issues the same collectives.
 
 `tally()` counts the collectives issued while it is open, by group, op
 and result shape.
@@ -190,6 +197,15 @@ def all_reduce_sum_(x: torch.Tensor, group=None) -> torch.Tensor:
     if is_distributed():
         _count("all_reduce", group, x.shape)
         dist.all_reduce(x, group=group)
+    return x
+
+
+def all_reduce_max_(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The elementwise max of `x` over the `group` processes, in place;
+    returns `x`."""
+    if is_distributed():
+        _count("all_reduce_max", group, x.shape)
+        dist.all_reduce(x, op=dist.ReduceOp.MAX, group=group)
     return x
 
 
