@@ -116,6 +116,14 @@ Phases (any failure exits non-zero, and no result line is printed):
         against its plain step by `check_dp_deviation`; each rank's bytes
         of parameters + momentum + donor against the plain step's, peak
         memory, seconds a step (recorded, not judged);
+     i. (run after 3h) the accuracy path: the six-step VOC 15-5s
+        `run-task` under UCD and FT at the JAX retention test's sizes
+        (tests/test_torch_retention_curve.py: ResNet-50 64x64 os 8, f32,
+        48 learnable synthetic images) with the kernels on, cut to 2
+        epochs a step; B1, B2 and B6 launch in every step, the f32
+        variants of B3-B5 in UCD's steps 1-5 only (counts set to 0 before
+        the phase, read after it); six finite rows of IoU a method, its
+        per-step table logged. The JAX bars are `--only bars`'s;
   4. time each kernel three ways (its own device time from a
      torch.profiler window, CUDA events around the wrapper calls, the
      host's enqueue time a call) beside its plain version, one library
@@ -136,18 +144,30 @@ failing capture, the loop at steps_per_call 1 and 4), `{"families": ...}`,
 `{"dp": ...}` (phase 3f), `{"experiment": ...}` (phase 3c's seconds per
 step, epoch img/s, loader
 and checkpoint times, launches and peak memory, beside phase 4's raw UCD
-step img/s), `{"options": ...}` (phase 3g) and `{"mesh2d": ...}` (phase
-3h). The last three lines of stdout are the `{"kernels": [...]}` record
-(each row's `ms` / `kernel_ms` the device time, `wrapper_ms` the events',
-`launches_experiment` its launches in phase 3c, `launches_options` in
-3g's option steps, `launches_mesh2d` in 3h's bf16 mesh sides: the
-validate, train, nan_guard, EWC and bf16_norm steps), the
-card's name and power limit (nvidia-smi), and `{"ok": true, "device": ...}`.
+step img/s), `{"options": ...}` (phase 3g), `{"mesh2d": ...}` (phase
+3h) and `{"accuracy": ...}` (phase 3i). The last three lines of stdout
+are the `{"kernels": [...]}` record (each row's `ms` / `kernel_ms` the
+device time, `wrapper_ms` the events', `launches_experiment` its
+launches in phase 3c, `launches_options` in 3g's option steps,
+`launches_mesh2d` in 3h's bf16 mesh sides: the validate, train,
+nan_guard, EWC and bf16_norm steps, `launches_accuracy` in 3i), the
+card's name and power limit (nvidia-smi), and `{"ok": true, "device":
+...}`.
 `--profile DIR` also writes torch.profiler tables of predict_labels and of
 the train step there. `--only kernels` stops after phase 2, `--only dp`
 runs phases 1, 3b and 3f, `--only options` phases 1, 3b and 3g,
-`--only mesh2d` phases 1, 3b and 3h; none prints a result (for bringing a
-kernel, the data-parallel path, the options or the mesh up).
+`--only mesh2d` phases 1, 3b and 3h, `--only bars` phase 1 and the
+port's functional tests at their sizes and bars with the kernels on,
+under deterministic cuDNN and torch algorithms (the learnability run, the
+incremental run with the contrastive kernels, the 15-5s `run-task` of UCD
+and FT at the JAX list less `--no_pallas`, 25 epochs a step; readings and
+margins logged before a bar is judged, a missed bar fails), `--only
+accuracy` phase 1 and the
+VOC 15-5s retention curve at full width (ResNet-101, os 16, 512x512,
+batch 8, bf16, 48 learnable synthetic images, UCD and FT, plain and
+under `bf16_norm`, the epoch count fixed first from plain step 0 alone);
+none prints a result (for bringing a kernel, the data-parallel path, the
+options, the mesh or the accuracy path up).
 """
 
 from __future__ import annotations
@@ -160,7 +180,9 @@ import gc
 import importlib.util
 import io
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -2374,6 +2396,301 @@ def phase_experiment(dev, where) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 3i: the end-to-end accuracy path
+# ---------------------------------------------------------------------------
+
+TESTS_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests")
+
+
+def functional_test(name):
+    """The port's functional test module `tests/<name>.py`: its runs and
+    bars are what phase 3i holds the card to (it imports no JAX)."""
+    spec = importlib.util.spec_from_file_location(
+        name, os.path.join(TESTS_DIR, f"{name}.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+CONTRASTIVE = ("contrastive_pass1", "contrastive_pass2", "contrastive_bwd")
+PATH_EPOCHS = 2   # epochs a step of the default run's 15-5s drive
+
+
+def retention_run(dev, ret, epochs=None) -> dict:
+    """The six-step VOC 15-5s `run-task` of UCD and FT through the port's
+    CLI, with the JAX retention test's argument list less `--no_pallas`
+    (the contrastive kernels on); `epochs` replaces the list's 25. Returns
+    each method's per-step curve, each step's launches and the run's."""
+    from ucd_torch import cli as CLI
+    t0, before, by_step, curves = time.perf_counter(), kernel_counts(), {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for method in ("UCD", "FT"):
+            logdir = os.path.join(tmp, f"logs_{method}")
+            args = ret.run_task_args(method, logdir,
+                                     os.path.join(tmp, f"ckpt_{method}"))
+            args.remove("--no_pallas")
+            if epochs is not None:
+                args[args.index("--epochs") + 1] = str(epochs)
+            with ExperimentWatch() as watch, \
+                    contextlib.redirect_stdout(io.StringIO()):
+                assert CLI.main(args + ["--device", dev.type]) == 0
+            by_step.update({(method, step): r["launches"]
+                            for step, r in watch.steps.items()})
+            curves[method] = ret._per_step_breakdown(ret.csv_path(logdir))
+    return {"curves": curves, "by_step": by_step,
+            "seconds": time.perf_counter() - t0,
+            "launches": _delta(kernel_counts(), before)}
+
+
+def check_retention_launches(by_step) -> None:
+    """B1, B2 and B6 in every step of both methods; the f32 variants of
+    B3-B5 in UCD's steps 1-5 only, in no FT step."""
+    assert set(by_step) == {(m, s) for m in ("UCD", "FT")
+                            for s in range(6)}, sorted(by_step)
+    for (method, step), d in by_step.items():
+        for k in CONTRASTIVE:
+            assert (d[k] > 0) == (method == "UCD" and step > 0), (
+                method, step, k, d)
+            assert d[k + "_mma"] == 0, (method, step, k, d)
+        assert d["fused_loss_fwd"] > 0 and d["fused_loss_bwd"] > 0, d
+        assert d["fused_argmax"] > 0, (method, step, d)
+
+
+def phase_accuracy_path(dev) -> dict:
+    """This slice's path in the default run: the six-step VOC 15-5s
+    `run-task` of UCD and FT at the JAX retention test's sizes with the
+    kernels on, cut to PATH_EPOCHS epochs a step (counts set to 0 just
+    before, read just after). It checks the path, not the JAX bars: each
+    step's launches, six rows a method, each reading a finite IoU in
+    [0, 1] (the new classes none at step 0). At these sizes the bars' verdict
+    moves with cuDNN's reduction order from run to run; `--only bars`
+    judges them (phase_accuracy)."""
+    ret = functional_test("test_torch_retention_curve")
+    zero_kernel_counts()
+    r = retention_run(dev, ret, PATH_EPOCHS)
+    curves = r["curves"]
+    log(f"[accuracy-path] VOC 15-5s run-task, ResNet-50 64x64 os 8, f32, "
+        f"kernels on, {PATH_EPOCHS} epochs a step; {r['seconds']:.1f} s\n"
+        + ret.retention_table(curves["UCD"], curves["FT"]))
+    log(f"[accuracy-path] launches: {json.dumps(r['launches'])}")
+    check_retention_launches(r["by_step"])
+    for method, curve in curves.items():
+        assert [row[0] for row in curve] == list(range(6)), (method, curve)
+        for step, old, new, every in curve:
+            for v in (old, every) + ((new,) if step else ()):
+                assert math.isfinite(v) and 0.0 <= v <= 1.0, (
+                    method, step, old, new, every)
+            assert step or math.isnan(new), (method, step, new)
+    return {"retention": ret.retention_record(curves["UCD"], curves["FT"]),
+            "epochs": PATH_EPOCHS, "seconds": r["seconds"],
+            "launches": r["launches"],
+            "launches_by_step": {f"{m} {s}": d for (m, s), d in
+                                 sorted(r["by_step"].items())}}
+
+
+def phase_accuracy(dev) -> dict:
+    """`--only bars`: the port learns and keeps old classes on the card,
+    held to the JAX tests' bars at their sizes with the kernels on, under
+    deterministic cuDNN and torch algorithms, so that a run gives one
+    verdict that the next run repeats: (a) the learnability run
+    (tests/test_torch_learnability.py), (b) the incremental-retention run
+    with the contrastive kernels (tests/test_torch_incremental_
+    learnability.py), (c) the six-step VOC 15-5s `run-task`, UCD and FT,
+    with the JAX test's argument list less `--no_pallas`
+    (tests/test_torch_retention_curve.py). The counts are set to 0 before
+    (a) and read after (c): B1, B2 and B6 launch in each run, the f32
+    variants of B3-B5 in (b) and in UCD's steps 1-5 of (c), in no FT
+    step and never on the tensor cores (the runs are float32). Every
+    reading is logged before any bar is judged; a missed bar fails."""
+    learn = functional_test("test_torch_learnability")
+    incr = functional_test("test_torch_incremental_learnability")
+    ret = functional_test("test_torch_retention_curve")
+    seconds, counts = {}, {}
+    zero_kernel_counts()
+    with deterministic() as caught:
+        t0, before = time.perf_counter(), kernel_counts()
+        a = learn.run_learnability(dev)
+        seconds["a"], counts["a"] = time.perf_counter() - t0, _delta(
+            kernel_counts(), before)
+        log(f"[accuracy] (a) learnability: loss {a['first_loss']:.4f} -> "
+            f"{a['last_loss']:.4f} (bar < 0.3x: "
+            f"{0.3 * a['first_loss']:.4f}), mIoU {a['miou']:.4f} "
+            f"(bar > 0.6); {seconds['a']:.1f} s")
+
+        t0, before = time.perf_counter(), kernel_counts()
+        b = incr.run_incremental(dev, use_pallas_contrastive=True)
+        seconds["b"], counts["b"] = time.perf_counter() - t0, _delta(
+            kernel_counts(), before)
+        old = (b["iou1"][1] + b["iou1"][2]) / 2
+        log(f"[accuracy] (b) incremental: step 0 IoU {b['iou0']} (bars > "
+            f"0.3); step 1 IoU {b['iou1']}, old mean {old:.4f} (bar > "
+            f"0.2), old min {min(b['iou1'][1], b['iou1'][2]):.4f} (> 0.1), "
+            f"new {b['iou1'][3]:.4f} (> 0.25); lkd {b['lkd']:.4g}, l_con "
+            f"{b['l_con']:.4g}; {seconds['b']:.1f} s")
+
+        c = retention_run(dev, ret)
+    curves, by_step = c["curves"], c["by_step"]
+    seconds["c"], counts["c"] = c["seconds"], c["launches"]
+    log(f"[accuracy] nondeterministic ops: {nondeterministic_ops(caught)}")
+    log("[accuracy] (c) VOC 15-5s run-task, ResNet-50 64x64 os 8, f32, "
+        f"kernels on; {seconds['c']:.1f} s\n"
+        + ret.retention_table(curves["UCD"], curves["FT"]))
+    log("[accuracy] RETENTION " + json.dumps(
+        ret.retention_record(curves["UCD"], curves["FT"])))
+    bars = ret.retention_bars(curves["UCD"], curves["FT"])
+    log("[accuracy] (c) bars (value, margin): " + json.dumps(bars))
+    total = kernel_counts()
+    log(f"[accuracy] launches over the phase: {json.dumps(total)}")
+
+    # the kernels of each run, and of each step of (c)
+    for run in ("a", "b", "c"):
+        for k in ("fused_loss_fwd", "fused_loss_bwd", "fused_argmax"):
+            assert counts[run][k] > 0, (run, k, counts[run])
+    for k in CONTRASTIVE:
+        assert counts["a"][k] == 0 and counts["b"][k] > 0, (k, counts)
+        assert total[k + "_mma"] == 0, (k, total)
+    check_retention_launches(by_step)
+
+    # every bar, judged after the three runs are logged; a miss fails
+    missed = []
+    for run, check in (
+            ("(a)", lambda: learn.check_learnability(a)),
+            ("(b)", lambda: incr.check_incremental(b)),
+            ("(c)", lambda: ret.check_retention(curves["UCD"],
+                                                curves["FT"]))):
+        try:
+            check()
+        except AssertionError as e:
+            missed.append(f"{run} {e}")
+    log(json.dumps({"accuracy_bars": {
+        "learnability": a, "incremental": b,
+        "retention": ret.retention_record(curves["UCD"], curves["FT"]),
+        "retention_bars": bars, "seconds": seconds, "launches": total,
+        "launches_by_run": counts, "missed": missed}}))
+    assert not missed, "JAX bars missed: " + "; ".join(missed)
+
+
+# `--only accuracy`: the retention curve at full width, plain and under
+# bf16_norm, through `Experiment` step by step as `run-task` drives it
+FULL_TASK = dict(dataset="voc", task="15-5s", overlap=True,
+                 backbone="resnet101", output_stride=16, crop_size=SIZE,
+                 batch_size=BATCH, dtype="bfloat16", pretrained=False)
+FULL_IMAGES = 48               # --synthetic_learnable 48
+FULL_LR = (0.01, 0.001)        # examples/voc_15-5s_ucd.sh: step 0, after
+FULL_EPOCHS = (5, 10, 15, 20, 30, 40, 60)   # step 0's candidates
+STEP0_BAR = 0.3   # the JAX test's step-0 old-class bar
+
+
+def full_width_step(dev, root, method, step, epochs, bf16_norm) -> dict:
+    """One step of VOC 15-5s at full width through `Experiment`, as
+    `run-task` runs it (validate and checkpoint once, at the step's end);
+    its class IoU goes into the curve's results.csv."""
+    from ucd_torch import cli as CLI
+    from ucd_torch.engine.experiment import Experiment
+    from ucd_torch.utils.reporting import write_step_csv
+    cfg = C.make_config(
+        step=step, method=method, lr=FULL_LR[min(step, 1)], epochs=epochs,
+        bf16_norm=bf16_norm, val_interval=epochs, ckpt_interval=epochs,
+        logdir=os.path.join(root, "logs"), ckpt_dir=os.path.join(root, "ckpt"),
+        **FULL_TASK)
+    base_train, base_val = CLI._make_bases(cfg, 0, FULL_IMAGES)
+    exp = Experiment(cfg, base_train=base_train, base_val=base_val,
+                     device=dev)
+    try:
+        exp.run()
+        score = exp.final_test()
+    finally:
+        exp.close()
+    write_step_csv(os.path.join(root, "logs", cfg.task_name, cfg.name,
+                                "results.csv"), step, score["Class IoU"])
+    old = [v for c, v in score["Class IoU"].items()
+           if 1 <= c <= 15 and v != "X"]
+    return {"old": float(np.mean(old)),
+            "img_per_s": exp.last_train_metrics["images_per_s"],
+            "iters": len(exp.train_loader)}
+
+
+def full_width_curve(dev, root, method, epochs, bf16_norm,
+                     first=0) -> dict:
+    """Steps `first`..5 of the curve in `root`; a `first` of 1 continues
+    from the step-0 checkpoint and results.csv row already there."""
+    ret = functional_test("test_torch_retention_curve")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    steps = [full_width_step(dev, root, method, s, epochs, bf16_norm)
+             for s in range(first, 6)]
+    torch.cuda.synchronize()
+    curve = ret._per_step_breakdown(os.path.join(
+        root, "logs", "15-5s-voc", "Experiment", "results.csv"))
+    return {"curve": curve, "seconds": time.perf_counter() - t0,
+            "first_step": first,
+            "img_per_s": [s["img_per_s"] for s in steps],
+            "iters_per_epoch": [s["iters"] for s in steps],
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
+
+
+def phase_accuracy_full(dev, where) -> dict:
+    """The VOC 15-5s retention curve at full width (ResNet-101, os 16,
+    512x512, batch 8, the bf16 policy, 48 learnable synthetic images, no
+    pretrained body, lr 0.01 at step 0 and 0.001 after, B3-B5 on the
+    tensor cores), UCD and FT, plain and under `bf16_norm`. The epoch
+    count is fixed first, from plain UCD step 0 alone: the fewest of
+    FULL_EPOCHS at which its old-class mIoU clears the JAX bar (> 0.3);
+    that step-0 run is step 0 of the plain UCD curve. Then the JAX test's
+    bars for each option; every curve is logged before any bar is judged,
+    and a missed bar fails the run."""
+    ret = functional_test("test_torch_retention_curve")
+    sweep, epochs, runs = [], None, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for e in FULL_EPOCHS:
+            root = os.path.join(tmp, f"sweep_{e}")
+            r = full_width_step(dev, root, "UCD", 0, e, False)
+            sweep.append((e, r["old"]))
+            log(f"[accuracy-full] step 0, {e} epochs: old-class mIoU "
+                f"{r['old']:.4f}, {r['img_per_s']:.1f} img/s")
+            if r["old"] > STEP0_BAR:
+                epochs = e
+                break
+            shutil.rmtree(root)
+        assert epochs is not None, (
+            f"step 0 never cleared {STEP0_BAR}: {sweep}")
+        log(f"[accuracy-full] epochs fixed from step 0 alone: {epochs}")
+        for bf16_norm in (False, True):
+            for method in ("UCD", "FT"):
+                reuse = not bf16_norm and method == "UCD"
+                with tempfile.TemporaryDirectory() as own:
+                    runs[bf16_norm, method] = full_width_curve(
+                        dev, root if reuse else own, method, epochs,
+                        bf16_norm, first=1 if reuse else 0)
+                r = runs[bf16_norm, method]
+                log(f"[accuracy-full] bf16_norm={bf16_norm} {method} (steps "
+                    f"{r['first_step']}-5): {r['seconds']:.1f} s, img/s "
+                    f"{r['img_per_s']}, peak {r['peak_mem_gb']:.2f} GB")
+    out, failed = {"card": where, "epochs": epochs, "step0_sweep": sweep}, []
+    for bf16_norm in (False, True):
+        ucd, ft = runs[bf16_norm, "UCD"], runs[bf16_norm, "FT"]
+        tag = "bf16_norm" if bf16_norm else "plain"
+        log(f"[accuracy-full] {tag} ({epochs} epochs a step)\n"
+            + ret.retention_table(ucd["curve"], ft["curve"]))
+        out[tag] = {"retention": ret.retention_record(ucd["curve"],
+                                                      ft["curve"]),
+                    **{m: {k: v for k, v in runs[bf16_norm, m].items()
+                           if k != "curve"} for m in ("UCD", "FT")}}
+    for bf16_norm, tag in ((False, "plain"), (True, "bf16_norm")):
+        ucd = runs[bf16_norm, "UCD"]["curve"]
+        ft = runs[bf16_norm, "FT"]["curve"]
+        out[tag]["bars"] = ret.retention_bars(ucd, ft)
+        log(f"[accuracy-full] {tag} bars: {json.dumps(out[tag]['bars'])}")
+        try:
+            ret.check_retention(ucd, ft)
+        except AssertionError as e:
+            failed.append(f"{tag}: {e}")
+    log(json.dumps({"accuracy_full": out}))
+    assert not failed, failed
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phase 3g: the host ops' binding, the model's execution options, GroupNorm
 # ABN and the off-path modules
 # ---------------------------------------------------------------------------
@@ -3999,11 +4316,16 @@ def main(argv=None) -> int:
     ap.add_argument("--profile", metavar="DIR", default=None,
                     help="also write torch.profiler tables of "
                          "predict_labels and of the train step into DIR")
-    ap.add_argument("--only", choices=["kernels", "dp", "options", "mesh2d"],
+    ap.add_argument("--only", choices=["kernels", "dp", "options", "mesh2d",
+                                       "bars", "accuracy"],
                     default=None,
                     help="kernels: stop after the kernel checks; dp / "
                          "options / mesh2d: build, then phases 3b and 3f / "
-                         "3g / 3h only (prints no result)")
+                         "3g / 3h only; bars: build, then the JAX "
+                         "functional tests' bars at their sizes with the "
+                         "kernels on, deterministic; accuracy: build, then "
+                         "the VOC 15-5s retention curve at full width, "
+                         "plain and under bf16_norm (none prints a result)")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script runs the "
@@ -4047,6 +4369,14 @@ def main(argv=None) -> int:
         mesh2d = phase_mesh2d(dev, phase_train(dev), where)
         log(json.dumps({"mesh2d": mesh2d}))
         lap("3b + 3h")
+        return 0
+    if args.only == "bars":
+        phase_accuracy(dev)
+        lap("the JAX bars at the functional tests' sizes")
+        return 0
+    if args.only == "accuracy":
+        phase_accuracy_full(dev, where)
+        lap("the retention curve at full width")
         return 0
 
     # phase 2: every kernel against its plain version
@@ -4118,6 +4448,12 @@ def main(argv=None) -> int:
     # data x model mesh (the ranks set the counts to 0 and read them)
     mesh2d = phase_mesh2d(dev, trained, where)
     lap("3h two ranks on one card: 1-D and the 1 x 2 mesh")
+
+    # phase 3i: the six-step VOC 15-5s run-task of UCD and FT with the
+    # kernels on (it sets the counts to 0 and reads them); `--only bars`
+    # holds the same path to the JAX bars
+    accuracy = phase_accuracy_path(dev)
+    lap("3i accuracy path: the 15-5s run-task, UCD and FT")
     log(json.dumps({"bundle": {
         "card": where, "bits": bundled, "timing": captured,
         "capture_failure": failure,
@@ -4133,7 +4469,9 @@ def main(argv=None) -> int:
         "steady_state": loop}}))
     log(json.dumps({"options": {"card": where, **options}}))
     log(json.dumps({"mesh2d": mesh2d}))
+    log(json.dumps({"accuracy": {"card": where, **accuracy}}))
     exp_counts = experiment["launches"]
+    acc_counts = accuracy["launches"]
     mesh_counts = mesh2d["launches"]
     opt_counts = options["launches"]
 
@@ -4149,6 +4487,7 @@ def main(argv=None) -> int:
         "launches_dp": dp["launches"]["fused_argmax"],
         "launches_options": opt_counts["fused_argmax"],
         "launches_mesh2d": mesh_counts["fused_argmax"],
+        "launches_accuracy": acc_counts["fused_argmax"],
         "max_abs_err": err["max_abs_err"],
         "mismatch_rate": err["mismatch_rate"],
         **timing}]
@@ -4171,6 +4510,7 @@ def main(argv=None) -> int:
             "launches_dp_bundle": dp["bundle"]["launches_bundle"][name],
             "launches_options": opt_counts[name],
             "launches_mesh2d": mesh_counts[name],
+            "launches_accuracy": acc_counts[name],
             "max_abs_err": loss_err[err_key],
             "max_rel_grad_err": loss_err["grad_rel_err"],
             **t})
@@ -4196,6 +4536,8 @@ def main(argv=None) -> int:
             "launches_dp_bundle": dp["bundle"]["launches_bundle"][name],
             "launches_options": opt_counts[name],
             "launches_mesh2d": mesh_counts[name],
+            "launches_accuracy": acc_counts[name],
+            "launches_accuracy_mma": acc_counts[name + "_mma"],
             "max_abs_err": con_err[abs_key], "max_rel_err": con_err[rel_key],
             "mode": "bf16", **t["bf16"],
             **{f"{k}_f32": t["f32"][k] for k in (

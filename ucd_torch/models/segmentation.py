@@ -67,11 +67,13 @@ def resize_bilinear(x: torch.Tensor, size,
     (align_corners=False), computed in `dtype` (default f32, f64 for an f64
     input). `antialias=True` reproduces jax.image.resize(method='linear'),
     which antialiases when it downsamples (the 0.75 TTA scale); upsampling
-    is plain bilinear either way."""
+    is plain bilinear either way, so an upsample takes the plain kernel
+    (the CPU has no bf16 antialiased one)."""
     dtype = dtype or wide_dtype(x.dtype)
-    return F.interpolate(x.to(dtype), size=(int(size[0]), int(size[1])),
-                         mode="bilinear", align_corners=False,
-                         antialias=True)
+    h, w = int(size[0]), int(size[1])
+    return F.interpolate(x.to(dtype), size=(h, w), mode="bilinear",
+                         align_corners=False,
+                         antialias=h < x.shape[-2] or w < x.shape[-1])
 
 
 class IncrementalSegmentationModel(nn.Module):

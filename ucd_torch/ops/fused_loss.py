@@ -102,7 +102,10 @@ def fused_ce_kd_plain(logits_lr: torch.Tensor, labels: torch.Tensor,
                              ).permute(0, 2, 3, 1)
 
     up = upsample(logits_lr)
-    labels = labels.long()
+    # a label beyond the classes takes the last class, as in the kernel
+    # (and the JAX package's kernel)
+    labels = torch.where(labels.long() == L.IGNORE, L.IGNORE,
+                         labels.long().clamp(0, up.shape[-1] - 1))
     if ce_mode == "unce":
         loss_ce = L.unbiased_cross_entropy(up, labels, old_cl)
     else:

@@ -40,8 +40,13 @@ def _reduce(loss: torch.Tensor, reduction: str) -> torch.Tensor:
 
 
 def _gather_class(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
-    """x[..., idx] over the trailing class dim."""
-    return x.gather(-1, idx.long().unsqueeze(-1)).squeeze(-1)
+    """x[..., idx] over the trailing class dim; 0 where idx is no class,
+    as the JAX package's one-hot product gives."""
+    idx = idx.long()
+    n = x.shape[-1]
+    inside = (idx >= 0) & (idx < n)
+    got = x.gather(-1, idx.clamp(0, n - 1).unsqueeze(-1)).squeeze(-1)
+    return torch.where(inside, got, 0.0)
 
 
 def cross_entropy(logits, labels, ignore_index: int = IGNORE,
