@@ -224,6 +224,7 @@ from ucd_torch.ops import fused_eval as FE  # noqa: E402
 from ucd_torch.ops import fused_loss as FL  # noqa: E402
 from ucd_torch.ops import regularizers as R  # noqa: E402
 from ucd_torch.ops import tiled_contrastive as TT  # noqa: E402
+from ucd_torch.utils import tracing  # noqa: E402
 
 # the kernel timers (device time from the profiler, host enqueue time),
 # shared with the script that times two checkouts in turns
@@ -3999,26 +4000,15 @@ def time_training(dev, tr, where, profile_dir) -> dict:
     r["step_ms_mib"] = BATCH / r["img_per_s_mib"] * 1e3
     r["contrastive_term_ms"] = r["step_ms"] - r["step_ms_mib"]
 
-    # the same steps with a CUDA event recorded between their parts
-    events = []
-
-    def mark(name):
-        e = torch.cuda.Event(enable_timing=True)
-        e.record()
-        events.append((name, e))
-
+    # the same steps with tracing on: a CUDA event recorded between their
+    # parts by the step's phase mark, each part's device ms the mean of 5
     n = 5
     for key, c in (("device_ms", cfg), ("device_ms_mib", cfg_mib)):
-        marked_step = make_train_step(c, model, model_old, total_iters=100,
-                                      mark=mark)
-        sums = {}
-        for _ in range(n):
-            events.clear()
-            marked_step(state, batch, old_vars)
-            torch.cuda.synchronize()
-            for (_, a), (k, b) in zip(events, events[1:]):
-                sums[k] = sums.get(k, 0.0) + a.elapsed_time(b) / n
-        r[key] = sums
+        marked_step = make_train_step(c, model, model_old, total_iters=100)
+        with tracing.enabled():
+            for _ in range(n):
+                marked_step(state, batch, old_vars)
+        r[key] = tracing.phase_ms(marked_step.phases.steps)
     log(f"[time] train step, UCD VOC 15-5s step 1, ResNet-101, batch "
         f"{BATCH}, {SIZE}x{SIZE}, bf16 with f32 masters on {where}: "
         f"{r['img_per_s']:.2f} img/s ({r['step_ms']:.2f} ms per step, host "

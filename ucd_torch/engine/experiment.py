@@ -18,7 +18,9 @@ trains K full batches a call through `make_train_bundle` (a CUDA graph on
 the card), as the JAX class scans them. The regularizer's state (EWC / PI
 / RW) crosses incremental steps through the checkpoint and a same-step
 resume restores it bit for bit.
-`profile_dir` traces the first epoch with torch.profiler.
+`profile_dir` traces the first epoch with torch.profiler, with the
+program's tracing on (utils/tracing.py): the trace names the train step's
+phases (`ucd.step.*`) and every ABN (`ucd.abn`).
 
 The train loop keeps the step's metrics on the device and fetches them
 once per `print_interval` and once at the end of the epoch: no per-step
@@ -43,6 +45,7 @@ from ..data.transforms import train_transform, val_transform
 from ..device import resolve_device
 from ..models import make_model
 from ..ops import regularizers as R
+from ..utils import tracing
 from ..utils.viz import compose_sample_png
 from . import checkpoint as ckpt_lib
 from .logger import Logger
@@ -440,7 +443,8 @@ class Experiment:
         while self.cur_epoch < cfg.epochs and not cfg.test_only:
             epoch = self.cur_epoch
             if profile_dir and epoch == 0:
-                with _profiler(profile_dir, self.device, self.mesh):
+                with _profiler(profile_dir, self.device, self.mesh), \
+                        tracing.enabled():
                     m = self.train_epoch(epoch)
             else:
                 m = self.train_epoch(epoch)

@@ -54,6 +54,7 @@ from ..ops import losses as L
 from ..ops import regularizers as R
 from ..ops import tiled_contrastive as TT
 from ..ops.contrastive import ucd_contrastive_loss
+from ..utils import tracing
 from .metrics import confusion_matrix_update
 
 MAX_CONSECUTIVE_NONFINITE = 100
@@ -349,10 +350,6 @@ def _batch(batch, device):
     return images.permute(0, 3, 1, 2), labels
 
 
-def _no_mark(name: str) -> None:
-    return None
-
-
 def _nhwc(feats: Mapping[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
     return {k: v.permute(0, 2, 3, 1).contiguous() if k == "sem"
             else v.permute(0, 2, 3, 1) for k, v in feats.items()}
@@ -363,8 +360,9 @@ def _make_core(cfg: Config, model, model_old, total_iters: int,
     """The step after the upload, shared by `make_train_step` and
     `make_train_bundle`: core(state, x, labels, old_vars, mark) ->
     metrics, with x the NCHW view of the images and labels on the model's
-    device. It reads and writes only device tensors that live in `state`,
-    the model and `old_vars`, and never synchronizes with the host."""
+    device and `mark` a `tracing.PhaseMark`. It reads and writes only
+    device tensors that live in `state`, the model and `old_vars`, and
+    never synchronizes with the host."""
     _check_cfg(cfg)
     step_idx = cfg.step if step_idx is None else step_idx
     if cfg.dataset == "city_domain":
@@ -395,6 +393,7 @@ def _make_core(cfg: Config, model, model_old, total_iters: int,
         if state.model is not model:
             raise ValueError("state.model is not the model this step was "
                              "built for")
+        mark.begin()
         feats_old = None
         if has_old:
             # frozen donor forward, eval mode
@@ -416,7 +415,8 @@ def _make_core(cfg: Config, model, model_old, total_iters: int,
         for p in params.values():
             p.grad = None
         terms["loss_tot"].backward()
-        mark("backward")
+        in_group = mesh is not None or P.is_distributed()
+        mark("backward", "all_reduce" if in_group else None)
         grads = {n: p.grad if p.grad is not None else torch.zeros_like(p)
                  for n, p in params.items()}
         # inside a process group: the global batch's gradient, before the
@@ -433,7 +433,7 @@ def _make_core(cfg: Config, model, model_old, total_iters: int,
             P.all_reduce_mean_([g for n, g in grads.items()
                                 if n not in model.sharded])
             mark("all_reduce")
-        elif P.is_distributed():
+        elif in_group:
             P.all_reduce_mean_(list(grads.values()))
             mark("all_reduce")
         # the global batch's loss terms: every per-pixel mean divides by
@@ -484,8 +484,10 @@ def make_train_step(cfg: Config, model, model_old, total_iters: int,
     `mark(name)`, if given, is called at the start of the step and after
     each of its parts ("start", "upload", "donor_forward", "forward",
     "losses", "backward", inside a process group "all_reduce", then
-    "optimizer"), for a caller that times the parts (a CUDA event per
-    call).
+    "optimizer"), for a caller that times the parts. The step's own mark
+    (`fn.phases`, a `tracing.PhaseMark`) calls it and, with tracing on
+    (utils/tracing.py), spans each part and records a timing event after
+    it.
 
     Inside a process group (ucd_torch/parallel) `batch` is this process's
     shard of the global batch, and the step computes what the one-process
@@ -498,7 +500,7 @@ def make_train_step(cfg: Config, model, model_old, total_iters: int,
     applies the update of its own shards, and the donor shell `model_old`
     is put on the mesh too, its own tensors freed (the meta device)."""
     dev = _step_device(device, model, model_old)
-    mark = mark or _no_mark
+    mark = tracing.PhaseMark(mark, cuda=dev.type == "cuda")
     core = _make_core(cfg, model, model_old, total_iters, step_idx)
 
     def train_step(state: TrainState, batch, old_vars=None):
@@ -507,6 +509,7 @@ def make_train_step(cfg: Config, model, model_old, total_iters: int,
         mark("upload")
         return state, core(state, x, labels, old_vars, mark)
 
+    train_step.phases = mark
     return train_step
 
 
@@ -543,7 +546,9 @@ def _stack_rows(rows) -> Dict[str, torch.Tensor]:
 
 class _Capture:
     """One train step captured in a CUDA graph over static input buffers,
-    with the launches the capture counted and the state it is bound to."""
+    with the launches the capture counted, the state it is bound to and
+    its phase mark (`phases`: the events every replay records, if tracing
+    was on at the capture)."""
 
     def __init__(self, core, state, images, labels, old_vars, stream):
         self.image = torch.empty_like(images)
@@ -552,13 +557,14 @@ class _Capture:
         self.label.copy_(labels)
         self.bound = [t.data_ptr() for t in _state_tensors(state, old_vars)]
         self.graph = torch.cuda.CUDAGraph()
+        self.phases = tracing.PhaseMark(cuda=True)
         before = _read_counters()
         t0 = time.perf_counter()
         try:
             with torch.cuda.graph(self.graph, stream=stream,
                                   capture_error_mode="thread_local"):
                 self.out = core(state, self.image.permute(0, 3, 1, 2),
-                                self.label, old_vars, _no_mark)
+                                self.label, old_vars, self.phases)
         except Exception as e:
             raise RuntimeError(
                 f"CUDA-graph capture of the train step failed: {e}") from e
@@ -575,8 +581,9 @@ class _Capture:
                 "the train state or the donor's variables were rebound "
                 "since the capture: update them in place (copy_) so the "
                 "captured step reads them")
-        self.image.copy_(images)
-        self.label.copy_(labels)
+        with tracing.span("ucd.step.upload"):
+            self.image.copy_(images)
+            self.label.copy_(labels)
         self.graph.replay()
         _add_counters(self.launches)
         return {k: v.clone() for k, v in self.out.items()}
@@ -602,7 +609,11 @@ def make_train_bundle(cfg: Config, model, model_old, total_iters: int,
     updated in place (`load_state_dict`, `copy_`), never rebound: the
     bundle raises if they were. Eager steps between calls are fine. On the CPU it runs the step
     K times. `fn.capture` holds the capture (its `capture_s`, launches per
-    replay) once made."""
+    replay, `phases`) once made; `fn.phases` is the mark of the steps it
+    runs eagerly. With tracing on the bundle spans its upload of the K
+    batches and each replay's staging copy as `ucd.step.upload`; the
+    captured step's phases have events only if tracing was on at the
+    capture (utils/tracing.py)."""
     if k < 1:
         raise ValueError(f"k must be >= 1, got {k}")
     dev = _step_device(device, model, model_old)
@@ -619,11 +630,13 @@ class _Bundle:
     def __init__(self, core, dev, k):
         self.core, self.dev, self.k = core, dev, k
         self.capture = None
+        self.phases = tracing.PhaseMark(cuda=dev.type == "cuda")
 
     def __call__(self, state: TrainState, batches, old_vars=None):
-        core, dev, k = self.core, self.dev, self.k
-        images = torch.as_tensor(batches["image"]).to(dev)
-        labels = torch.as_tensor(batches["label"]).to(dev)
+        core, dev, k, mark = self.core, self.dev, self.k, self.phases
+        with tracing.span("ucd.step.upload"):
+            images = torch.as_tensor(batches["image"]).to(dev)
+            labels = torch.as_tensor(batches["label"]).to(dev)
         if images.shape[0] != k or labels.shape[0] != k:
             raise ValueError(f"expected {k} stacked batches, got "
                              f"{images.shape[0]} images, {labels.shape[0]} "
@@ -632,7 +645,7 @@ class _Bundle:
         if dev.type != "cuda":
             for i in range(k):
                 rows.append(core(state, images[i].permute(0, 3, 1, 2),
-                                 labels[i], old_vars, _no_mark))
+                                 labels[i], old_vars, mark))
             return state, _stack_rows(rows)
         cap = self.capture
         if cap is None:
@@ -642,7 +655,7 @@ class _Bundle:
             stream.wait_stream(torch.cuda.current_stream(dev))
             with torch.cuda.stream(stream):
                 rows.append(core(state, images[0].permute(0, 3, 1, 2),
-                                 labels[0], old_vars, _no_mark))
+                                 labels[0], old_vars, mark))
             torch.cuda.current_stream(dev).wait_stream(stream)
             cap = self.capture = _Capture(
                 core, state, images[0], labels[0], old_vars, stream)

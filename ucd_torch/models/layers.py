@@ -58,6 +58,7 @@ from torch import nn
 from ..parallel.collectives import (all_gather_rows, all_reduce_sum_,
                                    copy_to_model, gather_from_model,
                                    is_distributed)
+from ..utils import tracing
 
 
 def leaky_relu_gain(negative_slope: float) -> float:
@@ -345,7 +346,15 @@ class ABN(nn.Module):
     def forward(self, x: torch.Tensor, runs: int = 1) -> torch.Tensor:
         """`runs`: on the mesh, how many contiguous runs of the unsharded
         channels a shard holds (the ASPP's `map_bn` over sharded branches
-        holds a slice of each, models/deeplab.py); 1 elsewhere."""
+        holds a slice of each, models/deeplab.py); 1 elsewhere. With
+        tracing on it runs inside the profiler range `ucd.abn`
+        (utils/tracing.py)."""
+        if tracing.ON:
+            with tracing.span("ucd.abn"):
+                return self._norm_act(x, runs)
+        return self._norm_act(x, runs)
+
+    def _norm_act(self, x: torch.Tensor, runs: int) -> torch.Tensor:
         rounded = self.norm_dtype is not None and self.norm_dtype != self.wide
         if self.norm_type == "gn":
             y = self._group_norm(x.to(self.wide), runs)
