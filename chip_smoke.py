@@ -220,6 +220,7 @@ from ucd_torch.models import (IncrementalSegmentationModel,  # noqa: E402
 from ucd_torch.models.segmentation import resize_bilinear  # noqa: E402
 from ucd_torch.ops import build  # noqa: E402
 from ucd_torch.ops import contrastive as CT  # noqa: E402
+from ucd_torch.ops import fused_abn as FA  # noqa: E402
 from ucd_torch.ops import fused_eval as FE  # noqa: E402
 from ucd_torch.ops import fused_loss as FL  # noqa: E402
 from ucd_torch.ops import regularizers as R  # noqa: E402
@@ -734,6 +735,272 @@ def phase_contrastive_kernels(dev) -> dict:
         raise AssertionError("pixel_contrastive_loss_tiled accepted an "
                              "input it cannot take")
     return worst
+
+
+# ---------------------------------------------------------------------------
+# phase 2: the fused ABN chain (ops/fused_abn.py)
+# ---------------------------------------------------------------------------
+
+ABN_BATCH = 24
+# (channels, H, W) of the UCD step's ABN inputs at 512x512 (ResNet-101, os
+# 16) and how many of its 107 ABN calls a forward take each
+ABN_SHAPES = [((64, 256, 256), 1), ((64, 128, 128), 6), ((128, 128, 128), 1),
+              ((128, 64, 64), 7), ((256, 128, 128), 4), ((256, 64, 64), 1),
+              ((256, 32, 32), 46), ((512, 64, 64), 5), ((512, 32, 32), 6),
+              ((1024, 32, 32), 25), ((2048, 32, 32), 4), ((256, 1, 1), 1)]
+ABN_EPS, ABN_SLOPE, ABN_MOMENTUM = 1e-5, 0.01, 0.1
+ABN_KERNELS = ("abn_",)
+# one bf16 unit of the larger value, with a floor for values that cancel
+# to near 0: f32 rounding of the statistics at this share of the largest
+ABN_Y_FLOOR, ABN_DX_FLOOR = 2.0 ** -20, 2.0 ** -16
+ABN_SUM_TOL = 1e-4     # dW, dB: f32 sums over up to 1.6 M rows, in
+                       # another order than the plain version's
+
+
+def bf16_ulps(a, b, floor) -> float:
+    """Largest |a - b| in bf16 units (8 significant bits) of the larger
+    magnitude, plus `floor` times the largest magnitude."""
+    a, b = a.double(), b.double()
+    mag = torch.maximum(a.abs(), b.abs())
+    ulp = torch.exp2(torch.floor(torch.log2(mag.clamp_min(1e-30))) - 7)
+    return float(((a - b).abs() / (ulp + floor * float(mag.max()))).max())
+
+
+def abn_case(dev, shape, seed):
+    """bf16 channels_last x and dy of (ABN_BATCH, *shape), and f32 weight,
+    bias, running mean and variance."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    C = shape[0]
+
+    def act(scale, shift):
+        return (torch.randn(ABN_BATCH, *shape, device=dev, generator=g)
+                * scale + shift).to(torch.bfloat16).contiguous(
+                    memory_format=torch.channels_last)
+    x, dy = act(2.0, 0.5), act(1.0, 0.0)
+    w = torch.rand(C, device=dev, generator=g) + 0.5
+    b = torch.randn(C, device=dev, generator=g) * 0.3
+    rm = torch.randn(C, device=dev, generator=g) * 0.1
+    rv = torch.rand(C, device=dev, generator=g) + 0.5
+    return x, dy, w, b, rm, rv
+
+
+def abn_library_chain(x, w, b, rm, rv, training):
+    """The plain chain of `ABN` (models/layers.py) as it runs on the card:
+    widen, cuDNN's f32 BatchNorm, in-place leaky-ReLU, cast back."""
+    mean, var = (torch.zeros_like(rm), torch.zeros_like(rv)) if training \
+        else (rm, rv)
+    y = F.batch_norm(x.float(), mean, var, w, b, training,
+                     1.0 if training else 0.0, ABN_EPS)
+    return F.leaky_relu(y, ABN_SLOPE, inplace=True).to(torch.bfloat16)
+
+
+def check_abn_shape(dev, shape, seed) -> dict:
+    """Kernels against the plain version on the same CUDA tensors: train
+    forward (output, saved statistics, running statistics), backward (dx,
+    dW, dB) after both the train and the eval forward, and the eval
+    forward; each kernel twice, bit for bit."""
+    x, dy, w, b, rm, rv = abn_case(dev, shape, seed)
+    op, op_bwd = torch.ops.ucd.batch_norm_act, \
+        torch.ops.ucd.batch_norm_act_backward
+    out = {}
+    for training in (True, False):
+        rm_k, rv_k, rm_p, rv_p = rm.clone(), rv.clone(), rm.clone(), \
+            rv.clone()
+        args = (training, True, ABN_MOMENTUM, ABN_EPS, ABN_SLOPE)
+        y, stats = op(x, w, b, rm_k, rv_k, *args)
+        y2, stats2 = op(x, w, b, rm.clone(), rv.clone(), *args)
+        yp, stats_p = FA.batch_norm_act_plain(x, w, b, rm_p, rv_p, *args)
+        dx, dwb = op_bwd(dy, x, w, b, stats, training, ABN_SLOPE)
+        dx2, dwb2 = op_bwd(dy, x, w, b, stats, training, ABN_SLOPE)
+        dxp, dwbp = FA.batch_norm_act_backward_plain(dy, x, w, b, stats,
+                                                    training, ABN_SLOPE)
+        torch.cuda.synchronize()
+        assert y.dtype == dx.dtype == torch.bfloat16
+        assert y.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(y, y2) and torch.equal(stats, stats2), shape
+        assert torch.equal(dx, dx2) and torch.equal(dwb, dwb2), shape
+        mode = "train" if training else "eval"
+        r = {f"{mode}_y_ulps": bf16_ulps(y, yp, ABN_Y_FLOOR),
+             f"{mode}_dx_ulps": bf16_ulps(dx, dxp, ABN_DX_FLOOR),
+             f"{mode}_dwb_err": float(((dwb - dwbp).abs().amax(1)
+                                       / dwbp.abs().amax(1)).max()),
+             f"{mode}_stats_err": float(((stats - stats_p).abs().amax(1)
+                                         / stats_p.abs().amax(1)).max())}
+        if training:
+            r["running_err"] = max(
+                float((rm_k - rm_p).abs().max() / rm_p.abs().max()),
+                float((rv_k - rv_p).abs().max() / rv_p.abs().max()))
+            assert r["running_err"] <= 1e-5, (shape, r)
+        else:
+            assert torch.equal(rm_k, rm) and torch.equal(rv_k, rv), shape
+        assert r[f"{mode}_y_ulps"] <= 1.0 and r[f"{mode}_dx_ulps"] <= 1.0, \
+            (shape, r)
+        assert r[f"{mode}_dwb_err"] <= ABN_SUM_TOL, (shape, r)
+        assert r[f"{mode}_stats_err"] <= 1e-5, (shape, r)
+        out.update(r)
+    return out
+
+
+def time_abn_shape(dev, shape, seed) -> dict:
+    """Device ms of each kernel pass (profiler, by kernel name) beside its
+    byte bound (each input read once, each output written once, at 3.35
+    TB/s), the plain version's and the cuDNN chain's (CUDA events)."""
+    x, dy, w, b, rm, rv = abn_case(dev, shape, seed)
+    op, op_bwd = torch.ops.ucd.batch_norm_act, \
+        torch.ops.ucd.batch_norm_act_backward
+    n = x.numel()
+    iters = 20 if n > 2 ** 24 else 100
+    _, stats = op(x, w, b, rm, rv, True, False, ABN_MOMENTUM, ABN_EPS,
+                  ABN_SLOPE)
+    passes = {
+        "fwd": (lambda: op(x, w, b, rm, rv, True, False, ABN_MOMENTUM,
+                           ABN_EPS, ABN_SLOPE), 4),
+        "bwd": (lambda: op_bwd(dy, x, w, b, stats, True, ABN_SLOPE), 6),
+        "eval": (lambda: op(x, w, b, rm, rv, False, False, ABN_MOMENTUM,
+                            ABN_EPS, ABN_SLOPE), 4)}
+    r = {}
+    for name, (fn, bytes_per) in passes.items():
+        ms, split, launches = BFK.device_ms(fn, ABN_KERNELS, iters)
+        r[f"{name}_ms"], r[f"{name}_bound_ms"] = ms, \
+            n * bytes_per / HBM_BYTES_PER_S * 1e3
+        r[f"{name}_launches"] = launches
+        r[f"{name}_split"] = split
+        r[f"{name}_enqueue_ms"] = BFK.enqueue_ms(fn, iters=iters)
+    train_args = (True, False, ABN_MOMENTUM, ABN_EPS, ABN_SLOPE)
+    r["plain_fwd_ms"] = cuda_ms(lambda: FA.batch_norm_act_plain(
+        x, w, b, rm, rv, *train_args), iters=iters, warmup=2)
+    r["plain_bwd_ms"] = cuda_ms(lambda: FA.batch_norm_act_backward_plain(
+        dy, x, w, b, stats, True, ABN_SLOPE), iters=iters, warmup=2)
+    r["plain_eval_ms"] = cuda_ms(lambda: FA.batch_norm_act_plain(
+        x, w, b, rm, rv, False, False, ABN_MOMENTUM, ABN_EPS, ABN_SLOPE),
+        iters=iters, warmup=2)
+    xr = x.detach().requires_grad_(True)
+    wr, br = w.detach().requires_grad_(True), b.detach().requires_grad_(True)
+    yl = abn_library_chain(xr, wr, br, rm, rv, True)
+    r["library_fwd_ms"] = cuda_ms(lambda: abn_library_chain(
+        xr, wr, br, rm, rv, True), iters=iters, warmup=2)
+    r["library_bwd_ms"] = cuda_ms(lambda: torch.autograd.grad(
+        yl, (xr, wr, br), dy, retain_graph=True), iters=iters, warmup=2)
+    r["library_eval_ms"] = cuda_ms(lambda: abn_library_chain(
+        x, w, b, rm, rv, False), iters=iters, warmup=2)
+    r["library_fwd_enqueue_ms"] = BFK.enqueue_ms(lambda: abn_library_chain(
+        xr, wr, br, rm, rv, True), iters=iters)
+    return r
+
+
+def check_abn_profiler_names(dev):
+    """The kernels a profiled forward and backward launch lie under the
+    host operators `ucd::batch_norm_act` and `_backward` (what the
+    `abn.ms_per_step` reader counts), and no user annotation of them lies
+    on the device's rows."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, dy, w, b, rm, rv = abn_case(dev, (256, 32, 32), 5)
+    xr = x.detach().requires_grad_(True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        y = FA.fused_abn(xr, w, b, rm, rv, training=True, update=True,
+                         momentum=ABN_MOMENTUM, eps=ABN_EPS, slope=ABN_SLOPE)
+        y.backward(dy)
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    under = {}
+    for e in prof.events():
+        if e.device_type != cuda and "batch_norm_act" in e.name:
+            under[e.name] = under.get(e.name, 0) + len(
+                [k for k in getattr(e, "kernels", ()) if "abn_" in k.name])
+    assert under == {"ucd::batch_norm_act": 3,
+                     "ucd::batch_norm_act_backward": 3}, under
+    annotated = [e.name for e in prof.events() if e.device_type == cuda
+                 and getattr(e, "is_user_annotation", False)]
+    assert not annotated, annotated
+    log(f"[kernel] fused_abn under the profiler: kernels by host operator "
+        f"{under}, no user annotation on the device")
+
+
+def check_abn_ucd_step(dev) -> dict:
+    """One bf16 ResNet-101 UCD step (batch 2 at 128x128) launches the
+    kernels for every ABN: 107 train forwards, 107 donor (eval) forwards,
+    107 backwards, none bypassed."""
+    cfg = C.make_config(**dict(TRAIN, batch_size=2, crop_size=128))
+    assert cfg.dtype == "bfloat16"
+    step0 = calibrated_model(dev, (16,), backbone=cfg.backbone, size=128,
+                             batch=2, seed=7)
+    prev_sd = {k: v.clone() for k, v in step0.state_dict().items()}
+    del step0
+    model, model_old, state, old_vars = build_train(dev, cfg, prev_sd)
+    step = make_train_step(cfg, model, model_old, total_iters=100)
+    batch = train_batches(1, 2, 128, cfg.tot_classes, seed=90)[0]
+    fn = FA.fused_abn
+    names = ("launches_fwd", "launches_eval", "launches_bwd", "bypassed")
+    before = [getattr(fn, k) for k in names]
+    _, metrics = step(state, batch, old_vars)
+    torch.cuda.synchronize()
+    used = {k: getattr(fn, k) - v for k, v in zip(names, before)}
+    assert used == {"launches_fwd": 107, "launches_eval": 107,
+                    "launches_bwd": 107, "bypassed": 0}, used
+    assert all(math.isfinite(float(v)) for v in metrics.values()), metrics
+    log(f"[kernel] fused_abn in one bf16 UCD step: {used}")
+    return used
+
+
+def phase_abn_kernels(dev, where) -> dict:
+    """The fused ABN kernels against the plain version at the UCD step's
+    ABN shapes (batch 24, 512x512), their device time beside the bound,
+    the plain version's and the cuDNN chain's, the profiler's operator
+    names, and the launch counters of a UCD step. Also a non-multiple of
+    8 channels and a few rows (the kernels' scalar and short paths)."""
+    worst, rows = {}, []
+    extra = [((20, 3, 5), 0), ((8, 1, 1), 0), ((2048, 1, 1), 0)]
+    for k, (shape, calls) in enumerate(ABN_SHAPES + extra):
+        r = check_abn_shape(dev, shape, 100 + k)
+        worst = {key: max(worst.get(key, 0.0), v) for key, v in r.items()}
+        if not calls:
+            log(f"[kernel] fused_abn ({ABN_BATCH}, {shape}): ok "
+                f"{json.dumps(r)}")
+            continue
+        t = time_abn_shape(dev, shape, 200 + k)
+        rows.append({"shape": [ABN_BATCH, *shape], "calls": calls, **r, **t})
+        log(f"[kernel] fused_abn ({ABN_BATCH}, {shape}) x {calls}: ok "
+            f"{json.dumps(r)}; device ms fwd {t['fwd_ms']:.4f} (bound "
+            f"{t['fwd_bound_ms']:.4f}), bwd {t['bwd_ms']:.4f} "
+            f"({t['bwd_bound_ms']:.4f}), eval {t['eval_ms']:.4f} "
+            f"({t['eval_bound_ms']:.4f}); plain {t['plain_fwd_ms']:.4f} / "
+            f"{t['plain_bwd_ms']:.4f} / {t['plain_eval_ms']:.4f}; cuDNN "
+            f"chain {t['library_fwd_ms']:.4f} / {t['library_bwd_ms']:.4f} / "
+            f"{t['library_eval_ms']:.4f}")
+        torch.cuda.empty_cache()
+    step = {}
+    for key in ("fwd_ms", "bwd_ms", "eval_ms", "fwd_bound_ms",
+                "bwd_bound_ms", "eval_bound_ms", "plain_fwd_ms",
+                "plain_bwd_ms", "plain_eval_ms", "library_fwd_ms",
+                "library_bwd_ms", "library_eval_ms", "fwd_enqueue_ms",
+                "bwd_enqueue_ms", "eval_enqueue_ms",
+                "library_fwd_enqueue_ms"):
+        step[key] = sum(r[key] * r["calls"] for r in rows)
+    for name in ("fwd", "bwd", "eval"):
+        step[f"{name}_x_bound"] = step[f"{name}_ms"] / step[f"{name}_bound_ms"]
+    log(f"[kernel] fused_abn over a step's 107 ABNs at batch 24 on {where}: "
+        f"{json.dumps(step)}")
+    check_abn_profiler_names(dev)
+    launches = check_abn_ucd_step(dev)
+    # what the kernels do not take raises
+    x, dy, w, b, rm, rv = abn_case(dev, (64, 8, 8), 9)
+    for bad in (lambda: torch.ops.ucd.batch_norm_act(
+                    x.float(), w, b, rm, rv, True, True, 0.1, ABN_EPS, 0.01),
+                lambda: torch.ops.ucd.batch_norm_act(
+                    x, w.double(), b, rm, rv, True, True, 0.1, ABN_EPS,
+                    0.01)):
+        try:
+            bad()
+        except (TypeError, ValueError, RuntimeError):
+            continue
+        raise AssertionError("the fused ABN kernels took an input they "
+                             "cannot take")
+    torch.cuda.synchronize()
+    return {"worst": worst, "shapes": rows, "step": step,
+            "launches_ucd_step": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -4335,7 +4602,7 @@ def main(argv=None) -> int:
     where = card()
     log(f"[build] {build.kernel_sources()} built for {where}; torch "
         f"{torch.__version__}, CUDA {torch.version.cuda}")
-    for name in (FE.KERNEL, FL.KERNEL, TT.KERNEL):
+    for name in (FE.KERNEL, FL.KERNEL, TT.KERNEL, FA.KERNEL):
         ptxas = build.library_path(name).with_suffix(".log").read_text()
         # registers, shared memory, stack and spills of each kernel
         log("\n".join(ln for ln in ptxas.splitlines()
@@ -4373,6 +4640,8 @@ def main(argv=None) -> int:
     err = phase_kernels(dev)
     loss_err = phase_loss_kernels(dev)
     con_err = phase_contrastive_kernels(dev)
+    abn = phase_abn_kernels(dev, where)
+    log(json.dumps({"fused_abn": {"card": where, **abn}}))
     lap("2 kernels vs plain versions")
     if args.only == "kernels":
         return 0

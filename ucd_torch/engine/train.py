@@ -48,6 +48,7 @@ from ..config import Config, unsupported_fields
 from ..device import resolve_device
 from ..models.layers import use_mesh, wide_dtype
 from ..models.segmentation import resize_bilinear, trainable_mask
+from ..ops import fused_abn as FA
 from ..ops import fused_eval as FE
 from ..ops import fused_loss as FL
 from ..ops import losses as L
@@ -518,7 +519,8 @@ def make_train_step(cfg: Config, model, model_old, total_iters: int,
 # what the capture counted once per replay
 def _launch_counters():
     return [(fn, name) for fn in (FL.fused_ce_kd, FE.fused_argmax,
-                                  TT.pixel_contrastive_loss_tiled)
+                                  TT.pixel_contrastive_loss_tiled,
+                                  FA.fused_abn)
             for name in sorted(vars(fn)) if name.startswith("launches")]
 
 

@@ -14,7 +14,10 @@ to bf16 before the activation, where flax's `BatchNorm(dtype=bf16)` rounds
 it; a bf16 input is then handed to the BatchNorm as it is (f32 weights and
 statistics, f32 arithmetic inside), with no f32 copy. float64 is a
 test-only compute dtype: weights, statistics and normalization are then
-all f64.
+all f64. On the card, a bf16 BatchNorm ABN of a bf16 model with the wide
+norm and leaky-ReLU or identity, in eval mode or outside a process group,
+runs as ops/fused_abn.py's kernels (`ABN._fused`): the same values at the
+same rounding point, bf16 in and out, f32 in registers only.
 
 Train-mode BatchNorm follows flax: the batch is normalized with its biased
 variance and the running variance takes the *biased* batch variance too
@@ -55,6 +58,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops import fused_abn as FA
 from ..parallel.collectives import (all_gather_rows, all_reduce_sum_,
                                    copy_to_model, gather_from_model,
                                    is_distributed)
@@ -259,16 +263,24 @@ class BatchNorm2d(nn.BatchNorm2d):
         # global statistics of rematerialized first runs, oldest first
         self._remat_stats = collections.deque()
 
+    def tally(self):
+        """(update, factor) of a train-mode call: whether the running
+        statistics move (not in a rematerialized recompute; a call that
+        moves them counts in `num_batches_tracked`) and their lerp
+        weight."""
+        update = getattr(_remat, "phase", None) != "recompute"
+        if update:
+            self.num_batches_tracked.add_(1)
+        factor = self.momentum if self.momentum is not None \
+            else 1.0 / float(self.num_batches_tracked)
+        return update, factor
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var,
                                 self.weight, self.bias, False, 0.0, self.eps)
         phase = getattr(_remat, "phase", None)
-        update = phase != "recompute"
-        if update:
-            self.num_batches_tracked.add_(1)
-        factor = self.momentum if self.momentum is not None \
-            else 1.0 / float(self.num_batches_tracked)
+        update, factor = self.tally()
         if is_distributed():
             stats = self._remat_stats.popleft() if not update else None
             y, mean, var, counts = _SyncBatchNorm.apply(
@@ -355,6 +367,12 @@ class ABN(nn.Module):
         return self._norm_act(x, runs)
 
     def _norm_act(self, x: torch.Tensor, runs: int) -> torch.Tensor:
+        if FA.routes(x.device.type, x.dtype, self.dtype, self.norm_type,
+                     self.norm_dtype, self.activation, self.norm.training,
+                     is_distributed()):
+            return self._fused(x)
+        if x.is_cuda:
+            FA.bypass()
         rounded = self.norm_dtype is not None and self.norm_dtype != self.wide
         if self.norm_type == "gn":
             y = self._group_norm(x.to(self.wide), runs)
@@ -373,6 +391,19 @@ class ABN(nn.Module):
         elif self.activation == "elu":
             y = F.elu(y, self.activation_param, inplace=True)
         return y.to(self.dtype)
+
+    def _fused(self, x: torch.Tensor) -> torch.Tensor:
+        """The chain through ops/fused_abn.py's kernels: the same values
+        at the same rounding point, the running statistics moved as
+        `BatchNorm2d.forward` moves them."""
+        bn = self.bn
+        update, factor = bn.tally() if bn.training else (False, 0.0)
+        slope = self.activation_param if self.activation == "leaky_relu" \
+            else 1.0
+        return FA.fused_abn(x, bn.weight, bn.bias, bn.running_mean,
+                            bn.running_var, training=bn.training,
+                            update=update, momentum=factor, eps=bn.eps,
+                            slope=slope)
 
     def _group_norm(self, x: torch.Tensor, runs: int) -> torch.Tensor:
         """GroupNorm of `x`, whole or this rank's channel shard. A shard

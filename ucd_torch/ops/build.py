@@ -23,6 +23,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Sequence
 
+import torch
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -89,6 +91,15 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             lib = _libs[name] = ctypes.CDLL(str(library_path(name)))
         return lib
+
+
+def stream(device) -> int:
+    """The raw handle of the current CUDA stream of `device`, which a
+    kernel launch takes."""
+    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if get is not None:
+        return get(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
 
 
 def kernel_sources() -> list:

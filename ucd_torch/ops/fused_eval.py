@@ -297,13 +297,6 @@ def _kernel_fns() -> Dict[torch.dtype, object]:
     return fns
 
 
-def _stream(device) -> int:
-    get = getattr(torch._C, "_cuda_getCurrentRawStream", None)
-    if get is not None:
-        return get(device.index)
-    return torch.cuda.current_stream(device).cuda_stream
-
-
 def _launch(logits_lr: torch.Tensor, H: int, W: int) -> torch.Tensor:
     B, h, w, C = logits_lr.shape
     if logits_lr.dtype not in (torch.float32, torch.bfloat16):
@@ -325,7 +318,7 @@ def _launch(logits_lr: torch.Tensor, H: int, W: int) -> torch.Tensor:
           if device.index == torch.cuda.current_device()
           else torch.cuda.device(device)):
         err = fn(logits_lr.data_ptr(), *ptrs, out.data_ptr(), B, h, w, C, H,
-                 W, n_cells, smem, _stream(device))
+                 W, n_cells, smem, build.stream(device))
     if err != 0:
         raise RuntimeError(f"fused_argmax kernel launch failed: CUDA error "
                            f"{err}")
