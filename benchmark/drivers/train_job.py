@@ -8,11 +8,12 @@ Set-up: the donor's weights from the seed, calibrated on one seeded batch
 maps; the program's train state built on the donor (`build_train_state`,
 which grows the model and imprints the new classifier); then the checked
 steps: the first `check_steps` steps, or the first call when K > 1, which
-also warm up every shape and kernel. The window then drives the same state
-with the same call for `seconds` and closes on a synchronize. With
---trace 1 a steady stretch of it is profiled. After the window: the peak
-memory, the program's state freed, and the reference follows the checked
-steps from the same weights and batches (lib/compare.py).
+also warm up every shape and kernel. The window then drives the same
+state with the same call for `seconds` and closes on a synchronize; the
+host record (lib/host.py) is logged. With --trace 1 a steady stretch of it
+is profiled. After the window: the peak memory, the program's state freed,
+and the reference follows the checked steps from the same weights and
+batches (lib/compare.py).
 
 Traffic keys: driver, batch, steps_per_call, pool (batches, a multiple of
 steps_per_call), check_steps, classes_per_image, ignore_band,
@@ -23,12 +24,13 @@ stretch), trace_calls.
 from __future__ import annotations
 
 import gc
+import os
 import time
 
 import torch
 
 from benchmark import flops
-from benchmark.lib import compare, inputs, report
+from benchmark.lib import compare, host, inputs, report
 from benchmark.lib.trace import Traced
 from benchmark.reference import model as RM
 from benchmark.reference.train import Reference
@@ -196,6 +198,7 @@ def run(ctx) -> dict:
     losses, dispatch, calls = [], [], 0
     traced, t_calls, launches, before = None, 0, {}, None
     i = prep.n_calls
+    load = [os.getloadavg()]
     t0 = time.perf_counter()
     deadline = t0 + ctx.seconds
     trace_at = t0 + tr["trace_at"] * ctx.seconds
@@ -220,6 +223,9 @@ def run(ctx) -> dict:
         i += 1
     _sync(dev)
     window_s = time.perf_counter() - t0
+    load.append(os.getloadavg())
+    ctx.log(host.line(host.card_address(dev), load, torch.get_num_threads(),
+                      dispatch))
     steps = calls * K
     loss_all = torch.cat([x.reshape(-1).float().cpu() for x in losses])
     failed = int((~torch.isfinite(loss_all)).sum())

@@ -51,11 +51,12 @@ class Context:
             result["metrics"] = self.bench.read_per_layer(self.cell["name"],
                                                           records)
         else:
-            units = {m["name"]: m["unit"]
-                     for m in self.bench.end_to_end(self.cell["name"])}
-            result["metrics"] = {k: {"value": float(v), "unit": units[k]}
-                                 for k, v in out["e2e"].items()
-                                 if k in units}
+            result["metrics"] = {}
+            for m in self.bench.end_to_end(self.cell["name"]):
+                v = self.bench.e2e_value(m["name"], out["e2e"])
+                if v is not None:
+                    result["metrics"][m["name"]] = {"value": float(v),
+                                                    "unit": m["unit"]}
         result["device"] = out["device"]
         if self.trace and out["trace"] is not None:
             result["breakdown"] = {

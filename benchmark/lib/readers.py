@@ -1,11 +1,15 @@
 """Helpers of the per-layer readers (benchmark/metrics/*.py): device time
-from the traced stretch by kernel or operator name, and a roofline share.
-A reader that finds nothing returns None, never 0."""
+from the traced stretch by kernel or operator name, a roofline share, and
+another metric's reader. A reader that finds nothing returns None, never
+0."""
 
 from __future__ import annotations
 
+import os
 import re
-from typing import Optional
+from typing import Callable, Optional
+
+from .spec import load_module
 
 
 def kernel_s(records: dict, pattern: str) -> Optional[float]:
@@ -49,3 +53,10 @@ def idle_pct(records: dict) -> Optional[float]:
         return None
     return 100.0 * (1.0 - trace["busy_s"] / trace["window_s"])
 
+
+def same_as(here: str, name: str) -> Callable[[dict], Optional[float]]:
+    """The `read` of the per-layer metric `name`, whose file lies beside the
+    reader at `here`: one quantity read in other cells, where it moves
+    another end-to-end metric, under a name of its own."""
+    return load_module(os.path.join(os.path.dirname(here), name + ".py"),
+                       "benchmark_metric_" + re.sub(r"\W", "_", name)).read

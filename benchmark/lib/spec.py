@@ -11,6 +11,11 @@ its name:
 
 So a later change adds a cell, a configuration, a mix or a metric by adding
 files and entries, without editing a file that is there.
+
+An end-to-end metric is the value its cell's driver gives under the same
+name. One named `<name>.<part>` that the driver does not give is the
+driver's `<name>`, held to a bound of its own in the cells it lists: the
+same quantity in cells that spread differently (`train_img_per_s.eager`).
 """
 
 from __future__ import annotations
@@ -139,6 +144,15 @@ class Benchmark:
     def end_to_end(self, cell: str) -> List[dict]:
         return [m for m in self.spec["end_to_end"]
                 if cell in m.get("workloads", (cell,))]
+
+    @staticmethod
+    def e2e_value(name: str, values: dict) -> Optional[float]:
+        """The value of the end-to-end metric `name` among a driver's
+        `values`, as the module's docstring says; None where there is none.
+        """
+        while name not in values and "." in name:
+            name = name.rsplit(".", 1)[0]
+        return values.get(name)
 
     def per_layer(self, cell: str) -> List[dict]:
         """The per-layer metrics that list this cell."""

@@ -1,0 +1,6 @@
+"""`device.idle_pct.train`, read in the cells whose rate is
+`train_img_per_s.eager`."""
+
+from benchmark.lib.readers import same_as
+
+read = same_as(__file__, "device.idle_pct.train")

@@ -127,11 +127,11 @@ def test_result_line(tmp_path):
             "device"} <= set(last)
     assert last["correct"] is True and last["attempted"] > 0
     assert last["failed"] == 0
-    assert set(last["metrics"]) == {"train_img_per_s", "train_peak_mem_gb",
-                                    "setup_s"}
+    assert set(last["metrics"]) == {"train_img_per_s.eager",
+                                    "train_peak_mem_gb", "setup_s"}
     for v in last["metrics"].values():
         assert math.isfinite(v["value"]) and v["value"] >= 0
-    assert last["metrics"]["train_img_per_s"]["value"] > 0
+    assert last["metrics"]["train_img_per_s.eager"]["value"] > 0
     assert set(last["device"]) >= {"platform", "kind", "count",
                                    "memory_peak_bytes"}
     assert [c for c in last["checks"]] == ["loss_gap", "grad_gap",
